@@ -1,0 +1,44 @@
+"""Weights and data carried across from the JAX package, as numpy.
+
+The port keeps the JAX package's parameter shapes (HWIO conv kernels,
+(in, out) fc matrices) and dict keys, so converting is a dtype and
+device move: stacked trees (leading device axis) and single trees alike.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.fl.client import StackedClients
+
+
+def params_from_jax(tree: Mapping[str, np.ndarray],
+                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A dict of numpy arrays (``repro.fl.cnn`` parameters, stacked or
+    single) -> the port's float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=dev)
+            for k, v in tree.items()}
+
+
+def params_to_numpy(params: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def clients_from_numpy(clients, device: DeviceLike = None) -> StackedClients:
+    """Any object with the fields of ``repro.fl.client.StackedClients``
+    (arrays convertible by ``np.asarray``) -> the port's StackedClients."""
+    dev = resolve_device(device)
+
+    def t(name, dtype):
+        return torch.tensor(np.asarray(getattr(clients, name)),
+                            dtype=dtype, device=dev)
+
+    return StackedClients(
+        x=t("x", torch.float32), y=t("y", torch.int64),
+        labeled=t("labeled", torch.bool), valid=t("valid", torch.bool),
+        true_y=t("true_y", torch.int64), counts=t("counts", torch.int64))

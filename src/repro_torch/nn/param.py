@@ -1,0 +1,74 @@
+"""The subset of ``repro.nn.param`` the CNN uses.
+
+Parameters are plain dicts of tensors in the JAX package's shapes.  Their
+flat-vector form follows JAX's tree order (dict keys sorted, each leaf
+raveled row-major), so a vector made here lines up element for element
+with ``repro.nn.param.flatten_to_vector`` of the same weights — the layout
+the ``alpha_combine`` transfer mixes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]      # logical axis name per dim (or None)
+    init: str = "normal"                 # normal (fan-in scaled) | zeros
+    scale: float = 1.0                   # stddev multiplier / fan-in override
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def _init_leaf(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    dtype = getattr(torch, spec.dtype)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype)
+    if spec.init != "normal":
+        raise ValueError(f"unsupported init {spec.init!r}")
+    # fan-in scaled normal (lecun): last dim = fan-out
+    std = spec.scale / math.sqrt(max(1, math.prod(spec.shape[:-1])))
+    return (torch.randn(spec.shape, generator=gen, dtype=torch.float32)
+            * std).to(dtype)
+
+
+def materialize(specs: Dict[str, ParamSpec], gen: torch.Generator, *,
+                device: torch.device) -> Dict[str, torch.Tensor]:
+    """Real tensors for a flat spec dict, drawn in sorted-key order from
+    ``gen`` (a CPU generator, so a seed gives the same weights on every
+    device), then moved to ``device``."""
+    return {k: _init_leaf(specs[k], gen).to(device) for k in sorted(specs)}
+
+
+def flatten_to_vector(tree: Dict[str, torch.Tensor], *,
+                      lead: int = 0) -> torch.Tensor:
+    """Concatenate every leaf in JAX tree order into one float32 vector;
+    with ``lead=1`` the leaves carry a leading stack axis and the result
+    is (S, P)."""
+    parts = [tree[k].reshape(*tree[k].shape[:lead], -1).float()
+             for k in sorted(tree)]
+    return torch.cat(parts, dim=lead)
+
+
+def unflatten_from_vector(vec: torch.Tensor, like: Dict[str, torch.Tensor],
+                          *, lead: int = 0) -> Dict[str, torch.Tensor]:
+    """Inverse of ``flatten_to_vector``: shapes and dtypes from ``like``
+    (leaf shapes taken after its first ``lead`` axes); ``vec``'s own
+    leading axes are kept."""
+    out, off = {}, 0
+    head = vec.shape[:-1]
+    for k in sorted(like):
+        shape = like[k].shape[lead:]
+        n = math.prod(shape)
+        out[k] = vec[..., off:off + n].reshape(*head, *shape) \
+            .to(like[k].dtype)
+        off += n
+    return out

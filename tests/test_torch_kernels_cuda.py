@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Needs a CUDA device, ``nvcc`` and nothing of JAX; skips without a GPU.
+On the GPU host: ``PYTHONPATH=src python -m pytest -q -m cuda
+tests/test_torch_kernels_cuda.py``."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.alpha_combine import ops as ac
+from repro_torch.kernels.disagreement import ops as dg
+
+RNG = np.random.default_rng(0)
+
+
+def _ac_inputs(s, t, p):
+    theta = RNG.normal(size=(s, p)).astype(np.float32)
+    alpha = RNG.uniform(size=(s, t)).astype(np.float32)
+    return theta, alpha / alpha.sum(0, keepdims=True)
+
+
+def _preds(n, m, classes=4):
+    return RNG.integers(0, classes, (n, m)).astype(np.int32)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU "
+                    "mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,t,p", [(10, 10, 48158), (7, 5, 1001),
+                                   (70, 40, 3001)])
+def test_alpha_combine_kernel_on_card(cuda, s, t, p):
+    theta, alpha = _ac_inputs(s, t, p)
+    th, al = torch.as_tensor(theta, device=cuda), \
+        torch.as_tensor(alpha, device=cuda)
+    before = ac.alpha_combine.launches
+    out = ac.alpha_combine(th, al)
+    torch.cuda.synchronize()
+    assert ac.alpha_combine.launches == before + 1
+    torch.testing.assert_close(out, ac.alpha_combine_plain(th, al),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        ac.alpha_combine(th, al.cpu())          # one device, no fallback
+    with pytest.raises(ValueError):
+        ac.alpha_combine(th.double(), al.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(10, 2500), (13, 777), (40, 130)])
+def test_disagreement_kernel_on_card(cuda, n, m):
+    preds = torch.as_tensor(_preds(n, m), device=cuda)
+    valid = torch.as_tensor(RNG.random(m) < 0.7, device=cuda).float()
+    before = dg.disagreement_counts.launches
+    out = dg.disagreement_counts(preds, valid)
+    torch.cuda.synchronize()
+    assert dg.disagreement_counts.launches == before + 1
+    assert torch.equal(out, dg.disagreement_counts_plain(preds, valid))
+    with pytest.raises(ValueError):
+        dg.disagreement_counts(preds.long(), valid)
+
+
+@pytest.mark.cuda
+def test_transfer_goes_through_the_kernel(cuda):
+    from repro_torch.fl.client import init_client_params
+    from repro_torch.fl.transfer import apply_transfer
+    p = init_client_params(4, torch.Generator().manual_seed(0),
+                           shared_init=False, device=cuda)
+    alpha = np.zeros((4, 4))
+    alpha[[0, 1], 2] = [0.25, 0.75]
+    alpha[0, 3] = 1.0
+    psi = np.array([0.0, 0.0, 1.0, 1.0])
+    before = ac.alpha_combine.launches
+    out = apply_transfer(p, alpha, psi)
+    assert ac.alpha_combine.launches == before + 1
+    for k, v in p.items():
+        torch.testing.assert_close(out[k][2], 0.25 * v[0] + 0.75 * v[1],
+                                   rtol=1e-5, atol=1e-6)
+        assert torch.equal(out[k][0], v[0])
