@@ -12,17 +12,36 @@ Phases, each of which raises on failure (the script then exits nonzero):
              card (``alpha_combine`` to rtol/atol 1e-5, ``disagreement``
              exactly) and times kernel, plain version and one PyTorch
              library call with CUDA events.
+             ``flash_attention`` is held against its plain version at
+             the serve path's two prefill shapes in bf16 (within one
+             bf16 ulp: rtol 2^-7, atol 1e-5) and in fp32, and on the JAX
+             package's test grid in fp32 (atol 3e-5, rtol 1e-4), and
+             timed beside ``scaled_dot_product_attention``.  Where a
+             window applies, the plain version without it must fall
+             outside the bar (the check sees a kernel that drops it).
 4. main path — the ST-LF paper pipeline at its full-size setting (10
              devices x 250 samples, 300 local SGD steps, Algorithm 1 with
              tau=4, T=25, the default solver), through the port's entry
              points on ``cuda``; every kernel's launch count is zeroed
              just before and read just after, and must have risen.
-5. checks  — the disagreement kernel on the trained models' predictions
+5. serve   — llama3.2-1b at full width (16 layers, seeded weights drawn
+             on the card) with ``attention_impl="kernel"``: prefill of
+             (4, 2048) and (1, 9216) prompts (the second past the 8192
+             window), counted: the flash kernel must have run exactly
+             32 times; the same prefills through ``"dot"`` agree; then
+             ``serve.generate`` of 32 greedy tokens after a (4, 64)
+             prompt, and JAX's serving invariant: the token-by-token
+             decode's logits at the prompt's last token match prefill's.
+             The logit checks test the whole stack's casts; the kernel
+             itself is held, element by element, against its plain
+             version on layer 0's own q, k, v of both prompts.
+6. checks  — the disagreement kernel on the trained models' predictions
              and the transfer against their plain versions, and the GPU
-             against the port on the CPU at a small size.
+             against the port on the CPU at a small size (the ST-LF
+             pieces, and the LM's prefill and greedy tokens).
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler window over
-each phase (the device's busy share, top kernels) after phase 5.
+each phase (the device's busy share, top kernels) after phase 6.
 
 The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, one JSON object describing every kernel, and the device
@@ -42,9 +61,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): memory rate, fp32 without tensor cores
+# H100 SXM peaks (NVIDIA data sheet): memory rate, fp32 without tensor
+# cores, bf16 on the tensor cores (dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 INNER_STEPS = 1500          # solve_stlf's default inner budget (run_stlf)
 
 KERNEL_META = {
@@ -54,7 +75,23 @@ KERNEL_META = {
     "disagreement": dict(
         source="src/repro_torch/kernels/disagreement/csrc/disagreement.cu",
         replaces="src/repro/kernels/disagreement/kernel.py:21"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:31"),
 }
+LM_ARCH = "llama3.2-1b"
+# (B, S) of the serve path's two prefills: a batch of 2k prompts, and one
+# prompt past llama3.2-1b's 8192-token sliding window
+PREFILLS = [(4, 2048), (1, 9216)]
+# the last-token logits of two bf16 paths (kernel vs dot prefill, decode
+# vs prefill): tests/test_decode_parity.py's bar, and equal argmax
+LM_TOL = dict(atol=0.15, rtol=0.05)
+# flash_attention against its plain version.  Both sum in fp32 and round
+# once to the output type, so in bf16 they differ by at most one bf16 ulp
+# of the value (<= 2^-7 of it); fp32 is the JAX package's own bar
+FLASH_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7),
+             torch.float32: dict(atol=3e-5, rtol=1e-4)}
 
 
 def log(msg: str) -> None:
@@ -77,12 +114,21 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the fp32 rate."""
+    operations over the peak rate of their type (fp32 by default)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def zero_counts(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def read_counts(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
 
 
 def phase_kernels(ac, dg, report):
@@ -151,15 +197,296 @@ def phase_kernels(ac, dg, report):
     return rows
 
 
-def phase_main_path(ac, dg, report):
-    """The paper pipeline at full size through the port's entry points."""
+def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs one (batch, head) of flash attention keeps, with
+    query i at position i + sk - sq."""
+    i = np.arange(sq) + (sk - sq)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _beyond(out, ref, tol) -> int:
+    """Elements of ``out`` outside ``torch.allclose``'s bar around ref."""
+    ref = ref.float()
+    return int(((out.float() - ref).abs()
+                > tol["atol"] + tol["rtol"] * ref.abs()).sum())
+
+
+def check_flash(fa, q, k, v, causal, window, what):
+    """The kernel against its plain version on the same inputs, within
+    FLASH_TOL; with a window, the plain version without it (what a
+    kernel that dropped the window would give) must fall outside the bar.
+    Returns (max abs err, elements the windowless version moves beyond
+    the bar or None, RMS of the output)."""
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    tol = FLASH_TOL[q.dtype]
+    err = float((out.float() - plain.float()).abs().max())
+    rms = float(plain.float().square().mean().sqrt())
+    if out.dtype != q.dtype or not torch.isfinite(out).all() \
+            or not torch.allclose(out.float(), plain.float(), **tol):
+        raise AssertionError(f"flash_attention {what}: max abs err {err} "
+                             f"beyond {tol} ({_beyond(out, plain, tol)} "
+                             f"elements; output RMS {rms:.3g})")
+    del out
+    moved = None
+    if window is not None:
+        moved = _beyond(fa.flash_attention_plain(q, k, v, causal=causal),
+                        plain, tol)
+        if moved == 0:
+            raise AssertionError(f"flash_attention {what}: dropping the "
+                                 f"window moves no element beyond {tol}; "
+                                 f"the check cannot see the window")
+    return err, moved, rms
+
+
+def phase_flash(fa):
+    """``flash_attention`` against its plain version at the serve path's
+    prefill shapes (bf16 and fp32, GQA K/V as ``attend`` passes them;
+    bf16 timed beside ``scaled_dot_product_attention``) and on the JAX
+    package's test grid (``tests/test_kernels.py``, fp32)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (b, sq, sk, h, kv, d, causal, window, dtype)
+        (4, 2048, 2048, 32, 8, 64, True, None, bf16),
+        (1, 9216, 9216, 32, 8, 64, True, 8192, bf16),
+        (4, 2048, 2048, 32, 8, 64, True, None, f32),
+        (1, 9216, 9216, 32, 8, 64, True, 8192, f32),
+        (1, 100, 100, 3, 3, 64, True, None, f32),
+        (2, 64, 64, 2, 2, 32, True, 24, f32),
+        (1, 32, 160, 2, 2, 16, True, None, f32),
+        (1, 96, 96, 1, 1, 128, False, None, f32),
+    ]
+    rows = []
+    for b, sq, sk, h, kv, d, causal, window, dt in cases:
+        q = torch.randn(b, sq, h, d, device=dev, generator=gen).to(dt)
+        k, v = (torch.randn(b, sk, kv, d, device=dev, generator=gen).to(dt)
+                for _ in range(2))
+        shape = [b, sq, sk, h, kv, d]
+        dtype = str(dt).replace("torch.", "")
+        err, moved, rms = check_flash(
+            fa, q, k, v, causal, window,
+            f"{shape} {dtype} causal={causal} window={window}")
+        row = dict(shape=shape, causal=causal, window=window, dtype=dtype,
+                   max_abs_err=err, out_rms=rms,
+                   tol=FLASH_TOL[dt], beyond_bar_without_window=moved)
+        note = f"max abs err {err:.3g} (output RMS {rms:.3g}, bar " \
+               f"{FLASH_TOL[dt]})" + ("" if moved is None else
+                                      f"; without the window {moved} "
+                                      f"elements fall beyond the bar")
+        if dt == bf16:             # the serve path's shapes: timed
+            pairs = live_pairs(sq, sk, causal, window) * b * h
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) \
+                * q.element_size()
+            b_ms, b_by = bound(nbytes, 4 * d * pairs, PEAK_BF16_PER_S)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mask = None
+            if window is not None:
+                i = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+                j = torch.arange(sk, device=dev)[None, :]
+                mask = (j <= i) & (j > i - window)
+            row.update(
+                pairs=pairs, flops=4 * d * pairs, bytes=nbytes,
+                ms=cuda_ms(lambda: fa.flash_attention(
+                    q, k, v, causal=causal, window=window), 10),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                    q, k, v, causal=causal, window=window), 2),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=mask is None and causal, enable_gqa=True),
+                    10),
+                bound_ms=b_ms, bound_by=b_by)
+            log(f"[kernels] flash_attention {shape} {dtype} window="
+                f"{window}: {row['ms']:.4f} ms kernel, {row['plain_ms']:.4f}"
+                f" ms plain, sdpa {row['library_ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}); {note}")
+        else:
+            log(f"[kernels] flash_attention {shape} {dtype} causal="
+                f"{causal} window={window}: {note}")
+        rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _timed(fn):
+    """(result, host seconds) of ``fn`` between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _logit_gap(a, b, what):
+    """Max abs difference of two (B, 1, V) logit tensors; raises unless
+    they agree within LM_TOL with equal argmax in every row."""
+    a, b = a.float(), b.float()
+    diff = float((a - b).abs().max())
+    top2 = b.topk(2, dim=-1).values
+    gap = float((top2[..., 0] - top2[..., 1]).min())
+    if not (torch.isfinite(a).all() and torch.allclose(a, b, **LM_TOL)
+            and torch.equal(a.argmax(-1), b.argmax(-1))):
+        raise AssertionError(
+            f"{what}: max |dlogit| {diff:.4g} (tolerance {LM_TOL}), argmax "
+            f"{a.argmax(-1).flatten().tolist()} vs "
+            f"{b.argmax(-1).flatten().tolist()}, smallest top-2 gap "
+            f"{gap:.4g}")
+    return diff, gap
+
+
+def layer0_qkv(model, params, tokens):
+    """Layer 0's q, k, v as ``DecoderLM.prefill`` hands them to the
+    attention impl: the prompt's embedding, rmsnorm, projection, rope."""
+    from repro_torch.models.common import take_layer
+    from repro_torch.nn.attention import project_qkv
+    from repro_torch.nn.layers import rmsnorm
+    cfg = model.cfg
+    dtype = getattr(torch, cfg.dtype)
+    x = model._embed_inputs(params, {"tokens": tokens}, dtype)
+    b, s, _ = x.shape
+    p = take_layer(params["layers"], 0)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    return project_qkv(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                       positions, cfg.rope_theta, dtype)
+
+
+def phase_serve(counted, report):
+    """llama3.2-1b at full width through the port's serving entry points:
+    ``DecoderLM.prefill`` with the flash kernel (counted), the same
+    prefills through ``"dot"``, ``serve.generate``, and JAX's
+    prefill/decode invariant (tests/test_decode_parity.py).  The logits
+    agree through the whole stack's casts; the kernel itself is held
+    element by element against its plain version on layer 0's q, k, v of
+    each prompt (every query row, so also the causal mask and window)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+    from repro_torch.nn.param import count_params
+
+    fa = counted["flash_attention"]
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH), attention_impl="kernel")
+    model = build_model(cfg)
+    params, init_s = _timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = count_params(params)
+    log(f"[serve] {cfg.name}: {n_params:,} parameters (float32, drawn on "
+        f"the card from seed 0) in {init_s:.3f} s; compute dtype "
+        f"{cfg.dtype}, attention_impl={cfg.attention_impl}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, shape, device=dev,
+                             generator=gen) for shape in PREFILLS]
+
+    # the main path: two full-width prefills through the kernel, counted
+    zero_counts(counted)
+    first = [_timed(lambda p=p: model.prefill(params, {"tokens": p}))
+             for p in prompts]
+    launches = read_counts(counted)
+    log(f"[serve] launches in the serve path: {launches}")
+    if launches["flash_attention"] != 2 * cfg.num_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in two "
+                             f"prefills, not {2 * cfg.num_layers}")
+
+    out = dict(params=n_params, init_s=init_s, launches=launches,
+               prefill=[])
+    dot = build_model(dataclasses.replace(cfg, attention_impl="dot"))
+    for (b, s), p, (logits, first_s) in zip(PREFILLS, prompts, first):
+        if logits.shape != (b, 1, cfg.vocab_size):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+        before = fa.launches
+        again, steady_s = _timed(lambda: model.prefill(params,
+                                                       {"tokens": p}))
+        if fa.launches != before + cfg.num_layers:
+            raise AssertionError("a later prefill did not launch the "
+                                 "kernel once per layer")
+        if not torch.equal(again, logits):
+            raise AssertionError(f"prefill {(b, s)} through the kernel is "
+                                 f"not deterministic")
+        ref, dot_s = _timed(lambda: dot.prefill(params, {"tokens": p}))
+        diff, gap = _logit_gap(logits, ref,
+                               f"prefill {(b, s)} kernel vs dot")
+        del ref
+        window = cfg.sliding_window if s > cfg.sliding_window else None
+        l0_err, l0_moved, l0_rms = check_flash(
+            fa_ops, *layer0_qkv(model, params, p), True, window,
+            f"layer 0 of prefill {(b, s)}")
+        out["prefill"].append(dict(
+            shape=[b, s], window=window, first_s=first_s,
+            steady_s=steady_s, tok_per_s=b * s / steady_s, dot_s=dot_s,
+            max_abs_dlogit_vs_dot=diff, min_top2_gap=gap,
+            layer0_max_abs_err=l0_err, layer0_out_rms=l0_rms,
+            layer0_beyond_bar_without_window=l0_moved))
+        log(f"[serve] prefill {(b, s)} through the kernel: first call "
+            f"{first_s:.4f} s, again {steady_s:.4f} s "
+            f"({b * s / steady_s:,.0f} tokens/s); through dot "
+            f"{dot_s:.4f} s; max |dlogit| kernel vs dot {diff:.4g}, argmax "
+            f"equal (smallest top-2 gap {gap:.4g})")
+        log(f"[serve] layer 0 of prefill {(b, s)}: kernel vs plain on the "
+            f"model's q, k, v: max abs err {l0_err:.3g} (output RMS "
+            f"{l0_rms:.3g}, bar {FLASH_TOL[torch.bfloat16]})"
+            + ("" if l0_moved is None else f"; without the window "
+               f"{l0_moved} elements fall beyond the bar"))
+        torch.cuda.empty_cache()
+
+    # serve.generate: a (4, 64) prompt through decode_step, 32 greedy
+    b, s, n_gen = 4, 64, 32
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=gen)
+    generate(model, params, prompt[:, :2], 2, 4)          # warm-up
+    toks, gen_s = _timed(lambda: generate(model, params, prompt, n_gen,
+                                          s + n_gen))
+    steps = s + n_gen
+    if toks.shape != (b, n_gen) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate gave {tuple(toks.shape)} tokens "
+                             f"out of range")
+    # JAX's serving invariant: generate's token-by-token pass over the
+    # prompt (decode_step from an empty cache) reaches prefill's logits
+    cache = model.init_cache(b, s + n_gen, device=dev)
+    for i in range(s):
+        dec, cache = model.decode_step(params, cache, {
+            "token": prompt[:, i:i + 1],
+            "pos": torch.full((b,), i, device=dev)})
+    before = fa.launches
+    pre = model.prefill(params, {"tokens": prompt})
+    if fa.launches != before + cfg.num_layers:
+        raise AssertionError("the (4, 64) prefill did not launch the "
+                             "kernel once per layer")
+    diff, gap = _logit_gap(dec, pre, "decode vs prefill at the prompt's "
+                           "last token")
+    if not torch.equal(toks[:, 0], dec[:, 0].argmax(-1)):
+        raise AssertionError("generate's first token is not the argmax of "
+                             "the decode pass's logits")
+    out["generate"] = dict(batch=b, prompt=s, gen=n_gen, wall_s=gen_s,
+                           decode_steps=steps,
+                           ms_per_decode_step=gen_s / steps * 1e3,
+                           max_abs_dlogit_decode_vs_prefill=diff,
+                           min_top2_gap=gap)
+    log(f"[serve] generate {(b, s)} + {n_gen} greedy tokens: {gen_s:.3f} s,"
+        f" {steps} decode steps, {gen_s / steps * 1e3:.3f} ms per step "
+        f"(host clock); decode vs prefill at the prompt's last token: max "
+        f"|dlogit| {diff:.4g}, argmax equal (smallest top-2 gap {gap:.4g})")
+    report["serve"] = out
+    return launches, model, params
+
+
+def phase_main_path(ac, dg, counted, report):
+    """The paper pipeline at full size through the port's entry points;
+    ``counted`` maps every kernel's name to its wrapper."""
     from repro_torch.data import build_network
     from repro_torch.fl import pairwise_disagreement, prepare_round, run_stlf
 
     devices = build_network("M//MM", num_devices=10, samples_per_device=250,
                             seed=0)
-    ac.alpha_combine.launches = 0
-    dg.disagreement_counts.launches = 0
+    zero_counts(counted)
     t0 = time.perf_counter()
     state = prepare_round(devices, 0, train_iters=300, div_tau=4, div_T=25)
     t1 = time.perf_counter()
@@ -167,8 +494,7 @@ def phase_main_path(ac, dg, report):
     t2 = time.perf_counter()
     stlf = run_stlf(state)
     t3 = time.perf_counter()
-    launches = {"alpha_combine": ac.alpha_combine.launches,
-                "disagreement": dg.disagreement_counts.launches}
+    launches = read_counts(counted)
     solve_s = stlf.solver.solve_time_s
     wall = dict(prepare_round=t1 - t0, train=state.wall_s["train"],
                 divergence=state.wall_s["divergence"],
@@ -184,8 +510,8 @@ def phase_main_path(ac, dg, report):
         f"n_targets={int(stlf.psi.sum())} target_acc={stlf.target_acc:.4f} "
         f"energy={stlf.energy:.6f} transmissions={stlf.transmissions}")
     log(f"[main] launches in the main path: {launches}")
-    for name, n in launches.items():
-        if n < 1:
+    for name in ("alpha_combine", "disagreement"):
+        if launches[name] < 1:
             raise AssertionError(f"{name} kernel was not launched on the "
                                  f"main path")
 
@@ -249,10 +575,11 @@ def phase_main_path(ac, dg, report):
     return launches, state, stlf
 
 
-def phase_profile(state, stlf, report):
+def phase_profile(state, stlf, lm, report):
     """``--profile`` only: torch.profiler over short windows of each phase
-    on the main path's state; the device's busy share of each window
-    (kernel time summed over wall time) and its top kernels."""
+    on the main path's state and of the serve path (``lm`` = model,
+    params); the device's busy share of each window (kernel time summed
+    over wall time) and its top kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.problem import STLFProblem
     from repro_torch.core.solver import solve_stlf
@@ -279,6 +606,18 @@ def phase_profile(state, stlf, report):
         "transfer_eval": lambda: evaluate_assignment(
             state, "ST-LF", stlf.psi, stlf.alpha),
     }
+    model, params = lm
+    toks = torch.randint(0, model.cfg.vocab_size, (4, 2048), device=dev)
+    cache = model.init_cache(4, 96, device=dev)
+    pos = [torch.full((4,), i, device=dev) for i in range(10)]
+
+    def decode_10():
+        for i in range(10):
+            model.decode_step(params, cache, {"token": toks[:, i:i + 1],
+                                              "pos": pos[i]})
+    windows["prefill_4x2048"] = lambda: model.prefill(params,
+                                                      {"tokens": toks})
+    windows["decode_10_steps_b4"] = decode_10
     out = {}
     for name, fn in windows.items():
         fn()
@@ -290,16 +629,17 @@ def phase_profile(state, stlf, report):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         # kernel entries only: an operator's entry repeats its kernels' time
-        dev = [(e.self_device_time_total, e.key)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = [(e.self_device_time_total, e.key) for e in kern]
+        launched = sum(e.count for e in kern)
         busy = sum(t for t, _ in dev)
         top = sorted(dev, reverse=True)[:5]
         out[name] = dict(wall_us=wall_us, device_us=busy,
-                         busy_share=busy / wall_us,
+                         busy_share=busy / wall_us, kernels=launched,
                          top=[[k, t] for t, k in top])
         log(f"[profile] {name}: wall {wall_us:.0f} us, device busy "
-            f"{busy:.0f} us ({busy / wall_us:.1%}); top: "
+            f"{busy:.0f} us ({busy / wall_us:.1%}), {launched} kernels; top: "
             + "; ".join(f"{k[:40]} {t:.0f}us" for t, k in top))
     report["profile"] = out
 
@@ -346,6 +686,37 @@ def phase_small_reference():
     log("[small] train_sources and solve_stlf agree on GPU and CPU")
 
 
+def phase_small_lm():
+    """The LM on the GPU (through the flash kernel) against the port on
+    the CPU (its plain version; the CPU tests hold that against the JAX
+    package), in float32 at 2 layers, d_model 128."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(
+        get_config(LM_ARCH).reduced(num_layers=2, d_model=128),
+        dtype="float32", attention_impl="kernel")
+    model = build_model(cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 80))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = model.init(torch.Generator().manual_seed(0), device=dev)
+        t = torch.as_tensor(toks, device=dev)
+        out[dev] = (model.prefill(params, {"tokens": t}).cpu(),
+                    generate(model, params, t[:, :16], 8, 24).cpu())
+    diff = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    if not torch.allclose(out["cuda"][0], out["cpu"][0], atol=1e-3,
+                          rtol=0.0):
+        raise AssertionError(f"LM prefill: GPU differs from CPU by {diff}")
+    if not torch.equal(out["cuda"][1], out["cpu"][1]):
+        raise AssertionError("LM generate: GPU tokens differ from CPU")
+    log(f"[small] LM prefill (window {cfg.sliding_window} < 80 tokens) "
+        f"agrees on GPU and CPU (max |dlogit| {diff:.3g}); greedy tokens "
+        f"equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -356,6 +727,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.alpha_combine import ops as ac
     from repro_torch.kernels.disagreement import ops as dg
+    from repro_torch.kernels.flash_attention import ops as fa
+    counted = {"alpha_combine": ac.alpha_combine,
+               "disagreement": dg.disagreement_counts,
+               "flash_attention": fa.flash_attention}
 
     # 1. device
     resolve_device("cuda")                    # also turns TF32 off
@@ -379,14 +754,23 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     rows = phase_kernels(ac, dg, report)
+    rows["flash_attention"] = phase_flash(fa)
+    torch.cuda.empty_cache()
 
     # 4. main path at full size, counted
-    launches, state, stlf = phase_main_path(ac, dg, report)
+    launches, state, stlf = phase_main_path(ac, dg, counted, report)
 
-    # 5. GPU against the CPU port on small inputs
+    # 5. the serve path at full width, counted
+    serve_launches, model, params = phase_serve(counted, report)
+    # each kernel's count from the path that runs it
+    launches = dict(launches,
+                    flash_attention=serve_launches["flash_attention"])
+
+    # 6. GPU against the CPU port on small inputs
     phase_small_reference()
+    phase_small_lm()
     if "--profile" in sys.argv[1:]:
-        phase_profile(state, stlf, report)
+        phase_profile(state, stlf, (model, params), report)
 
     kernels = []
     for name, rs in rows.items():

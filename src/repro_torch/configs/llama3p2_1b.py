@@ -1,0 +1,21 @@
+"""llama3.2-1b [dense] — 16L d_model=2048 32H (GQA kv=8) d_ff=8192
+vocab=128256; small llama3.  [hf:meta-llama/Llama-3.2-1B]
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="llama3.2-1b",
+    arch_type="dense",
+    num_layers=16,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=128256,
+    mlp_activation="swiglu",
+    rope_theta=500000.0,
+    tie_embeddings=True,
+    sliding_window=8192,
+    source="hf:meta-llama/Llama-3.2-1B",
+))

@@ -1,12 +1,13 @@
 """Weights and data carried across from the JAX package, as numpy.
 
 The port keeps the JAX package's parameter shapes (HWIO conv kernels,
-(in, out) fc matrices) and dict keys, so converting is a dtype and
-device move: stacked trees (leading device axis) and single trees alike.
+(in, out) fc matrices, layer-stacked LM leaves such as ``layers/attn/wq``
+(L, D, H, hd)) and dict keys, so converting is a dtype and device move:
+stacked trees (leading device axis) and single trees alike.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -42,3 +43,35 @@ def clients_from_numpy(clients, device: DeviceLike = None) -> StackedClients:
         x=t("x", torch.float32), y=t("y", torch.int64),
         labeled=t("labeled", torch.bool), valid=t("valid", torch.bool),
         true_y=t("true_y", torch.int64), counts=t("counts", torch.int64))
+
+
+# ``ModelConfig.attention_impl``: the JAX package's names -> the port's
+ATTENTION_IMPL_FROM_JAX = {"xla": "dot", "chunked": "chunked",
+                           "pallas": "kernel"}
+
+
+def lm_params_from_jax(tree: Mapping[str, Any],
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """A nested dict of numpy arrays in JAX's layout (``jax.tree_util.
+    tree_map(np.asarray, model.init(key))``) -> the same tree of tensors
+    on ``device``, each in its own dtype (bfloat16 arrays included)."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":          # ml_dtypes: no torch view
+            return torch.tensor(a.astype(np.float32),
+                                device=dev).to(torch.bfloat16)
+        return torch.tensor(a, device=dev)
+
+    return {k: lm_params_from_jax(v, dev) if isinstance(v, Mapping)
+            else leaf(v) for k, v in tree.items()}
+
+
+def lm_params_to_numpy(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of ``lm_params_from_jax`` (bfloat16 leaves come back as
+    float32 arrays, which hold them exactly)."""
+    return {k: lm_params_to_numpy(v) if isinstance(v, Mapping)
+            else (v.detach().float() if v.dtype == torch.bfloat16
+                  else v.detach()).cpu().numpy()
+            for k, v in params.items()}

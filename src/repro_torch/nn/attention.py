@@ -1,0 +1,205 @@
+"""GQA/MQA attention: prefill (causal or bidirectional or sliding window),
+cross attention, and cached decode (full or ring-buffer window cache).
+
+The port of ``repro.nn.attention``.  ``attend(impl=...)`` takes ``"dot"``
+(scores materialized), ``"chunked"`` (the online softmax over KV chunks
+in PyTorch) or ``"kernel"`` (the CUDA flash-attention kernel; its plain
+version on CPU tensors).  The casts are JAX's: ``dot_attention`` casts
+the fp32 probabilities to the compute dtype before the PV product, the
+chunked and kernel paths keep PV in fp32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.nn.layers import apply_rope
+from repro_torch.nn.param import ParamSpec
+
+NEG_INF = -2.0e9
+
+
+def attention_specs(d_model: int, num_heads: int, num_kv_heads: int,
+                    head_dim: int):
+    return {
+        "wq": ParamSpec((d_model, num_heads, head_dim), ("embed", "heads", "qkv")),
+        "wk": ParamSpec((d_model, num_kv_heads, head_dim), ("embed", "kv_heads", "qkv")),
+        "wv": ParamSpec((d_model, num_kv_heads, head_dim), ("embed", "kv_heads", "qkv")),
+        "wo": ParamSpec((num_heads, head_dim, d_model), ("heads", "qkv", "embed")),
+    }
+
+
+def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, H, hd) by group broadcast."""
+    rep = num_heads // k.shape[2]
+    return k if rep == 1 else k.repeat_interleave(rep, dim=2)
+
+
+def dot_attention(q, k, v, mask, dtype=torch.bfloat16):
+    """q: (B,Sq,H,hd); k,v: (B,Sk,H,hd); mask (B,1,Sq,Sk) or (1,1,Sq,Sk)."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / float(q.shape[-1]) ** 0.5
+    scores.masked_fill_(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    del scores
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None,
+                      chunk: int = 1024, dtype=torch.bfloat16):
+    """Online-softmax attention over KV chunks, so the (Sq, Sk) scores are
+    never materialized.  q: (B,Sq,H,hd); k,v: (B,Sk,H,hd) (heads
+    pre-repeated).  JAX's ``lax.scan`` over chunks is a Python loop."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    qf = q.float() / float(hd) ** 0.5
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    m = torch.full((b, h, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, h, sq), device=q.device)
+    acc = torch.zeros((b, h, sq, hd), device=q.device)
+    for c0 in range(0, sk, chunk):
+        kb = k[:, c0:c0 + chunk].float()
+        vb = v[:, c0:c0 + chunk].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
+        k_pos = c0 + torch.arange(kb.shape[1], device=q.device)[None, :]
+        mask = torch.ones_like(k_pos, dtype=torch.bool)
+        if causal:
+            mask = mask & (k_pos <= q_pos)
+        if window is not None:
+            mask = mask & (k_pos > q_pos - window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-20)[..., None]
+    return out.transpose(1, 2).to(dtype)                  # (B,Sq,H,hd)
+
+
+def causal_mask(sq: int, sk: int, window: Optional[int] = None,
+                offset: int = 0, device=None) -> torch.Tensor:
+    """(1,1,Sq,Sk) bool; query i attends to key j iff j <= i+offset and,
+    with a window, j > i+offset-window."""
+    qi = torch.arange(sq, device=device)[:, None] + offset
+    kj = torch.arange(sk, device=device)[None, :]
+    m = kj <= qi
+    if window is not None:
+        m = m & (kj > qi - window)
+    return m[None, None]
+
+
+def project_qkv(params, x, positions, rope_theta, dtype=torch.bfloat16):
+    """Self attention's q (B,S,H,hd) and k, v (B,S,KV,hd) from x (B,S,D),
+    rope applied to q and k: what ``attend`` hands to its impl."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
+    return (apply_rope(q, positions, rope_theta),
+            apply_rope(k, positions, rope_theta), v)
+
+
+def attend(params, x, positions, *, num_heads, num_kv_heads, head_dim,
+           rope_theta, causal=True, window=None, dtype=torch.bfloat16,
+           cross_kv=None, impl="dot"):
+    """Self (or cross) attention over a full sequence (prefill).
+
+    x: (B, S, D).  cross_kv: optional (k, v) from an encoder
+    (B, S_enc, KV, hd) for cross attention (bidirectional over memory).
+    With ``impl="kernel"`` the flash kernel takes K/V un-repeated (GQA
+    inside the kernel); JAX's call repeats them first, the same function.
+    """
+    b, s, _ = x.shape
+    if cross_kv is None:
+        q, k, v = project_qkv(params, x, positions, rope_theta, dtype)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
+        k, v = cross_kv
+    sk = k.shape[1]
+
+    if impl == "kernel" and cross_kv is None and causal:
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    elif impl == "chunked" and cross_kv is None and causal:
+        out = chunked_attention(q, _repeat_kv(k, num_heads),
+                                _repeat_kv(v, num_heads), causal=True,
+                                window=window, dtype=dtype)
+    else:
+        if cross_kv is not None or not causal:
+            mask = torch.ones((1, 1, s, sk), dtype=torch.bool,
+                              device=x.device)
+        else:
+            mask = causal_mask(s, sk, window=window, device=x.device)
+        out = dot_attention(q, _repeat_kv(k, num_heads),
+                            _repeat_kv(v, num_heads), mask, dtype=dtype)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+
+
+# ------------------------------------------------------------------ decode
+def cache_specs(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
+                dtype="bfloat16"):
+    s = ParamSpec((batch, max_len, num_kv_heads, head_dim),
+                  ("batch", "kv_seq", "kv_heads", "qkv"), init="zeros",
+                  dtype=dtype)
+    return {"k": s, "v": s}
+
+
+def init_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
+               dtype=torch.bfloat16, device=None):
+    shape = (batch, max_len, num_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attend(params, x, cache, pos, *, num_heads, num_kv_heads,
+                  head_dim, rope_theta, window=None, dtype=torch.bfloat16,
+                  cross_kv=None):
+    """One-token decode.  x: (B, 1, D); pos: (B,) current absolute position.
+
+    With ``window`` the cache is a ring buffer of size ``window`` (slot =
+    pos % window).  The new key and value are written into ``cache`` in
+    place (JAX returns an updated copy; the port saves the copy, as JAX's
+    donated buffers do).  Returns (out (B,1,D), cache).
+    """
+    b = x.shape[0]
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
+    if cross_kv is None:
+        q = apply_rope(q, pos[:, None], rope_theta)
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        mask = torch.ones((b, 1, 1, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = dot_attention(q, _repeat_kv(k, num_heads),
+                            _repeat_kv(v, num_heads), mask, dtype=dtype)
+        return torch.einsum("bshk,hkd->bsd", out,
+                            params["wo"].to(dtype)), cache
+
+    kn = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dtype))
+    vn = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dtype))
+    kn = apply_rope(kn, pos[:, None], rope_theta)
+
+    max_len = cache["k"].shape[1]
+    slot = pos % max_len if window is not None else pos
+    bidx = torch.arange(b, device=x.device)
+    cache["k"][bidx, slot] = kn[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = vn[:, 0].to(cache["v"].dtype)
+
+    kpos = torch.arange(max_len, device=x.device)[None, :]    # (1, S)
+    p = pos[:, None]
+    if window is not None:
+        # ring buffer: entry at slot j holds absolute position a with
+        # a % window == j and a <= pos; valid iff pos - a < window.
+        base = (p // max_len) * max_len
+        abs_pos = torch.where(kpos <= p % max_len, base + kpos,
+                              base - max_len + kpos)
+        valid = (abs_pos >= 0) & (abs_pos <= p) & (abs_pos > p - window)
+    else:
+        valid = kpos <= p
+    mask = valid[:, None, None, :]                             # (B,1,1,S)
+
+    out = dot_attention(q, _repeat_kv(cache["k"], num_heads),
+                        _repeat_kv(cache["v"], num_heads), mask, dtype=dtype)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype)), cache

@@ -1,16 +1,18 @@
-"""The subset of ``repro.nn.param`` the CNN uses.
+"""The port's ``repro.nn.param``: spec trees and their materialization.
 
-Parameters are plain dicts of tensors in the JAX package's shapes.  Their
-flat-vector form follows JAX's tree order (dict keys sorted, each leaf
-raveled row-major), so a vector made here lines up element for element
-with ``repro.nn.param.flatten_to_vector`` of the same weights — the layout
-the ``alpha_combine`` transfer mixes.
+Models declare a *spec tree*: nested dicts whose leaves are ``ParamSpec``
+(shape + logical axes + initializer); ``materialize`` turns it into real
+tensors.  Parameters are plain (nested) dicts of tensors in the JAX
+package's shapes.  Their flat-vector form follows JAX's tree order (dict
+keys sorted, each leaf raveled row-major), so a vector made here lines up
+element for element with ``repro.nn.param.flatten_to_vector`` of the same
+weights — the layout the ``alpha_combine`` transfer mixes.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -19,7 +21,7 @@ import torch
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]      # logical axis name per dim (or None)
-    init: str = "normal"                 # normal (fan-in scaled) | zeros
+    init: str = "normal"                 # normal (fan-in)|zeros|ones|embed
     scale: float = 1.0                   # stddev multiplier / fan-in override
     dtype: str = "float32"
 
@@ -28,24 +30,45 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    """One leaf, drawn on ``gen``'s device."""
     dtype = getattr(torch, spec.dtype)
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype)
-    if spec.init != "normal":
+        return torch.zeros(spec.shape, dtype=dtype, device=gen.device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=gen.device)
+    if spec.init == "embed":
+        std = spec.scale
+    elif spec.init == "normal":
+        # fan-in scaled normal (lecun): last dim = fan-out
+        std = spec.scale / math.sqrt(max(1, math.prod(spec.shape[:-1])))
+    else:
         raise ValueError(f"unsupported init {spec.init!r}")
-    # fan-in scaled normal (lecun): last dim = fan-out
-    std = spec.scale / math.sqrt(max(1, math.prod(spec.shape[:-1])))
-    return (torch.randn(spec.shape, generator=gen, dtype=torch.float32)
-            * std).to(dtype)
+    return (torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * std).to(dtype)
 
 
-def materialize(specs: Dict[str, ParamSpec], gen: torch.Generator, *,
-                device: torch.device) -> Dict[str, torch.Tensor]:
-    """Real tensors for a flat spec dict, drawn in sorted-key order from
-    ``gen`` (a CPU generator, so a seed gives the same weights on every
-    device), then moved to ``device``."""
-    return {k: _init_leaf(specs[k], gen).to(device) for k in sorted(specs)}
+def materialize(specs: Dict[str, Any], gen: torch.Generator, *,
+                device: torch.device) -> Dict[str, Any]:
+    """Real tensors for a (nested) spec dict, drawn leaf by leaf in JAX
+    tree order (sorted keys, depth first) from ``gen``, then moved to
+    ``device``.  A CPU generator gives the same weights on every device;
+    a generator on the card draws there (the full-width LM's 1.24 B
+    normals take seconds on a CPU generator)."""
+    return {k: materialize(specs[k], gen, device=device)
+            if isinstance(specs[k], dict)
+            else _init_leaf(specs[k], gen).to(device) for k in sorted(specs)}
+
+
+def count_params(tree) -> int:
+    """Elements in a (nested) tree of specs or tensors."""
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return math.prod(tree.shape)
 
 
 def flatten_to_vector(tree: Dict[str, torch.Tensor], *,

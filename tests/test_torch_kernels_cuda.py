@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card,
+and the LM prefill through the flash kernel.
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; skips without a GPU.
 On the GPU host: ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -81,3 +82,69 @@ def test_transfer_goes_through_the_kernel(cuda):
         torch.testing.assert_close(out[k][2], 0.25 * v[0] + 0.75 * v[1],
                                    rtol=1e-5, atol=1e-6)
         assert torch.equal(out[k][0], v[0])
+
+
+# tests/test_kernels.py's flash grid: (b, sq, sk, h, kv, d, causal, window),
+# with a GQA case, a fully masked start (sq > sk), fewer queries than a
+# tile behind a longer history, and the serve path's long-prompt window
+FLASH_GRID = [
+    (2, 64, 64, 2, 2, 32, True, None),
+    (1, 100, 100, 3, 3, 64, True, None),
+    (2, 64, 64, 2, 2, 32, True, 24),
+    (1, 32, 160, 2, 2, 16, True, None),
+    (1, 96, 96, 1, 1, 128, False, None),
+    (2, 130, 130, 8, 2, 64, True, 40),
+    (1, 48, 32, 2, 2, 16, True, None),
+    (2, 5, 77, 4, 2, 32, True, 40),
+    (1, 9216, 9216, 4, 1, 64, True, 8192),
+]
+
+
+@pytest.mark.cuda
+# bf16: kernel and plain version sum in fp32 and round once, so they
+# differ by at most one bf16 ulp of the value (<= 2^-7 of it)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32,
+                                        dict(atol=3e-5, rtol=1e-4)),
+                                       (torch.bfloat16,
+                                        dict(atol=1e-5, rtol=2.0 ** -7))])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FLASH_GRID)
+def test_flash_attention_kernel_on_card(cuda, b, sq, sk, h, kv, d, causal,
+                                        window, dtype, tol):
+    from repro_torch.kernels.flash_attention import ops as fa
+    q = torch.as_tensor(RNG.normal(size=(b, sq, h, d)), dtype=dtype,
+                        device=cuda)
+    k, v = (torch.as_tensor(RNG.normal(size=(b, sk, kv, d)), dtype=dtype,
+                            device=cuda) for _ in range(2))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), plain.float(), **tol)
+    assert bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.cpu(), v)              # no fallback
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+
+
+@pytest.mark.cuda
+def test_prefill_goes_through_the_flash_kernel(cuda):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(
+        get_config("llama3.2-1b").reduced(num_layers=2, d_model=128),
+        dtype="float32", attention_impl="kernel")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab_size, (2, 80)),
+                           device=cuda)
+    before = fa.flash_attention.launches
+    out = model.prefill(params, {"tokens": toks})
+    assert fa.flash_attention.launches == before + cfg.num_layers
+    ref = build_model(dataclasses.replace(cfg, attention_impl="dot")) \
+        .prefill(params, {"tokens": toks})
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)

@@ -1,0 +1,327 @@
+"""The dense decoder LM's serving path in the port against the JAX
+package: configs, layers, attention (every impl, cached decode with a
+full and a ring-buffer cache), ``DecoderLM.prefill`` / ``decode_step``
+and ``serve.generate``, with JAX's weights carried across by
+``convert.lm_params_from_jax``.  JAX's Pallas path runs in interpret
+mode, as ``tests/test_attention_impls.py`` runs it."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.launch import serve as jserve
+from repro.models.api import build_model as jbuild_model
+from repro.nn import attention as jattn
+from repro.nn import layers as jlayers
+from repro.nn import mlp as jmlp
+from repro.nn import param as jparam
+from repro.nn.layers import ShardCtx
+from repro_torch import configs as tconfigs
+from repro_torch import convert
+from repro_torch.launch import serve as tserve
+from repro_torch.models.api import build_model
+from repro_torch.nn import attention as tattn
+from repro_torch.nn import layers as tlayers
+from repro_torch.nn import mlp as tmlp
+from repro_torch.nn import param as tparam
+
+torch.set_num_threads(2)          # six test workers share the box
+
+RNG = np.random.default_rng(0)
+F32 = dict(atol=1e-4, rtol=1e-4)          # same algorithm, other sum order
+BF16 = dict(atol=0.15, rtol=0.05)         # test_decode_parity.py's bar
+IMPLS = {"xla": "dot", "chunked": "chunked", "pallas": "kernel"}
+
+
+def _cfgs(name, **over):
+    """(JAX config, port config) of the 2-layer, d_model 128 variant."""
+    j = dataclasses.replace(
+        jget_config(name).reduced(num_layers=2, d_model=128), **over)
+    t = dataclasses.replace(
+        tconfigs.get_config(name).reduced(num_layers=2, d_model=128),
+        **{k: convert.ATTENTION_IMPL_FROM_JAX[v]
+           if k == "attention_impl" else v for k, v in over.items()})
+    return j, t
+
+
+def _model_pair(name="llama3.2-1b", seed=0, **over):
+    jcfg, tcfg = _cfgs(name, **over)
+    jm = jbuild_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(seed))
+    tp = convert.lm_params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                    "cpu")
+    return jm, jp, build_model(tcfg), tp
+
+
+def _tokens(cfg, shape, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+# ------------------------------------------------------------------ configs
+def _as_port(d):
+    return dict(d, attention_impl=IMPLS[d["attention_impl"]])
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "repro-100m"])
+def test_config_copies_match_jax(name):
+    j, t = jget_config(name), tconfigs.get_config(name)
+    assert dataclasses.asdict(t) == _as_port(dataclasses.asdict(j))
+    for kw in ({}, dict(num_layers=2, d_model=128)):
+        assert dataclasses.asdict(t.reduced(**kw)) == \
+            _as_port(dataclasses.asdict(j.reduced(**kw)))
+    assert t.resolved_head_dim() == j.resolved_head_dim()
+    assert t.supports_long_context == j.supports_long_context
+    assert convert.ATTENTION_IMPL_FROM_JAX == IMPLS
+    assert sorted(tconfigs.all_configs()) == ["llama3.2-1b", "repro-100m"]
+
+
+def test_param_specs_and_count_match_jax():
+    for name in ("llama3.2-1b", "repro-100m"):
+        cfg = tconfigs.get_config(name)
+        t, j = build_model(cfg).param_specs(), \
+            jbuild_model(jget_config(name)).param_specs()
+        tl = jax.tree_util.tree_leaves(t, is_leaf=tparam.is_spec)
+        jl = jax.tree_util.tree_leaves(j, is_leaf=jparam.is_spec)
+        assert jax.tree_util.tree_structure(
+            jax.tree_util.tree_map(lambda s: 0, t, is_leaf=tparam.is_spec)) \
+            == jax.tree_util.tree_structure(
+                jax.tree_util.tree_map(lambda s: 0, j, is_leaf=jparam.is_spec))
+        assert [dataclasses.astuple(a) for a in tl] == \
+            [dataclasses.astuple(b) for b in jl]
+        assert tparam.count_params(t) == jparam.count_params(j)
+    assert tparam.count_params(build_model(
+        tconfigs.get_config("llama3.2-1b")).param_specs()) == 1_235_814_400
+
+
+def test_materialize_nested_inits():
+    _, tcfg = _cfgs("llama3.2-1b")
+    model = build_model(tcfg)
+    p = model.init(torch.Generator().manual_seed(0), device="cpu")
+    q = model.init(torch.Generator().manual_seed(0), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(p), jax.tree_util.tree_leaves(q)))
+    assert torch.equal(p["ln_f"], torch.ones(128))
+    assert torch.equal(p["layers"]["ln1"], torch.ones(2, 128))
+    assert abs(float(p["embedding"].std()) - 0.02) < 1e-3      # "embed"
+    # JAX's fan-in is every axis but the last: L * D * H = 1024 here
+    wq = p["layers"]["attn"]["wq"]
+    assert abs(float(wq.std()) * 1024 ** 0.5 - 1.0) < 0.05
+    assert wq.shape == (2, 128, 4, 32) and wq.dtype == torch.float32
+
+
+def test_lm_params_round_trip():
+    jm, jp, _, tp = _model_pair()
+    back = convert.lm_params_to_numpy(tp)
+    for a, b in zip(jax.tree_util.tree_leaves(jp),
+                    jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(jax.tree_util.tree_map(np.asarray, jp))
+    bf = convert.lm_params_from_jax(
+        {"a": {"w": np.asarray(jnp.asarray([1.5, -2.0], jnp.bfloat16))}},
+        "cpu")
+    assert bf["a"]["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        convert.lm_params_to_numpy(bf)["a"]["w"], [1.5, -2.0])
+
+
+# ------------------------------------------------------------------- layers
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_jax(dtype):
+    x = RNG.normal(size=(2, 5, 64)).astype(np.float32) * 3
+    scale = RNG.normal(size=(64,)).astype(np.float32)
+    out = tlayers.rmsnorm(torch.as_tensor(x).to(getattr(torch, dtype)),
+                          torch.as_tensor(scale))
+    ref = jlayers.rmsnorm(jnp.asarray(x, dtype), jnp.asarray(scale))
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               **(F32 if dtype == "float32"     # 1 ulp:
+                                  else dict(atol=1e-6, rtol=2 ** -8)))
+
+
+def test_apply_rope_matches_jax_to_9216():
+    x = RNG.normal(size=(1, 48, 2, 64)).astype(np.float32)
+    pos = np.sort(RNG.integers(0, 9217, (1, 48)))
+    pos[0, -1] = 9216
+    out = tlayers.apply_rope(torch.as_tensor(x), torch.as_tensor(pos),
+                             500000.0)
+    ref = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos, jnp.int32),
+                             500000.0)
+    # fp32 angles up to 9216 rad: both take sin/cos of the same fp32
+    # angle, to within an ulp or two of the result
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(
+        tlayers.rope_freqs(64, 500000.0).numpy(),
+        np.asarray(jlayers.rope_freqs(64, 500000.0)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
+def test_mlp_matches_jax(act):
+    specs = jmlp.mlp_specs(32, 64, act)
+    jp = jparam.materialize(specs, jax.random.PRNGKey(0))
+    x = RNG.normal(size=(2, 5, 32)).astype(np.float32)
+    out = tmlp.mlp(convert.lm_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), "cpu"),
+        torch.as_tensor(x), act, torch.float32)
+    ref = jmlp.mlp(jp, jnp.asarray(x), act, dtype=jnp.float32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+
+
+# ---------------------------------------------------------------- attention
+def _attn_params(d=64, h=4, kv=2, hd=16, seed=0):
+    jp = jparam.materialize(jattn.attention_specs(d, h, kv, hd),
+                            jax.random.PRNGKey(seed))
+    return jp, convert.lm_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), "cpu")
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("impl", ["xla", "chunked", "pallas"])
+def test_attend_matches_jax(impl, window):
+    jp, tp = _attn_params()
+    x = RNG.normal(size=(2, 48, 64)).astype(np.float32)
+    pos = np.tile(np.arange(48), (2, 1))
+    kw = dict(num_heads=4, num_kv_heads=2, head_dim=16, rope_theta=1e4,
+              window=window)
+    out = tattn.attend(tp, torch.as_tensor(x), torch.as_tensor(pos),
+                       dtype=torch.float32, impl=IMPLS[impl], **kw)
+    ref = jattn.attend(jp, jnp.asarray(x), jnp.asarray(pos, jnp.int32),
+                       dtype=jnp.float32, impl=impl, **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+
+
+@pytest.mark.parametrize("window,cache_len", [(None, 16), (6, 6)])
+def test_decode_attend_matches_jax(window, cache_len):
+    """12 single-token steps; with a window the cache is a ring buffer
+    of ``window`` slots, so it wraps twice."""
+    jp, tp = _attn_params()
+    kw = dict(num_heads=4, num_kv_heads=2, head_dim=16, rope_theta=1e4,
+              window=window)
+    jc = jattn.init_cache(2, cache_len, 2, 16, jnp.float32)
+    tc = tattn.init_cache(2, cache_len, 2, 16, torch.float32)
+    for t in range(12):
+        x = RNG.normal(size=(2, 1, 64)).astype(np.float32)
+        pos = np.array([t, t + 3])
+        out, tc = tattn.decode_attend(tp, torch.as_tensor(x),
+                                      tc, torch.as_tensor(pos),
+                                      dtype=torch.float32, **kw)
+        ref, jc = jattn.decode_attend(jp, jnp.asarray(x), jc,
+                                      jnp.asarray(pos, jnp.int32),
+                                      dtype=jnp.float32, **kw)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]), **F32)
+
+
+# -------------------------------------------------------------------- model
+def _prefill_pair(dtype, s, **over):
+    jm, jp, tm, tp = _model_pair(dtype=dtype, attention_impl="pallas",
+                                 **over)
+    toks = _tokens(jm.cfg, (2, s))
+    ref = np.asarray(jm.prefill(jp, {"tokens": jnp.asarray(toks,
+                                                           jnp.int32)}),
+                     np.float32)
+    out = tm.prefill(tp, {"tokens": torch.as_tensor(toks)})
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    return out.numpy(), ref
+
+
+@pytest.mark.parametrize("over", [dict(sliding_window=None),
+                                  dict(sliding_window=24)])
+def test_prefill_kernel_matches_jax_pallas_f32(over):
+    out, ref = _prefill_pair("float32", 64, **over)
+    np.testing.assert_allclose(out, ref, **F32)
+
+
+def test_prefill_kernel_matches_jax_pallas_bf16():
+    out, ref = _prefill_pair("bfloat16", 64, sliding_window=None)
+    np.testing.assert_allclose(out, ref, **BF16)
+    assert np.array_equal(out.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.parametrize("cache_len,window", [(16, None), (8, 8)])
+def test_decode_steps_match_jax(cache_len, window):
+    """12 decode steps; with ``sliding_window == cache_len`` the model
+    picks the ring-buffer cache itself."""
+    jm, jp, tm, tp = _model_pair(dtype="float32", sliding_window=window)
+    toks = _tokens(jm.cfg, (2, 12))
+    jc, tc = jm.init_cache(2, cache_len), tm.init_cache(2, cache_len,
+                                                        device="cpu")
+    step = jax.jit(lambda p, c, b: jm.decode_step(p, c, b))
+    for t in range(12):
+        ref, jc = step(jp, jc, {"token": jnp.asarray(toks[:, t:t + 1],
+                                                     jnp.int32),
+                                "pos": jnp.full((2,), t, jnp.int32)})
+        out, tc = tm.decode_step(tp, tc, {
+            "token": torch.as_tensor(toks[:, t:t + 1]),
+            "pos": torch.full((2,), t)})
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+    np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]), **F32)
+
+
+def test_decode_matches_prefill_in_port():
+    """JAX's serving invariant (tests/test_decode_parity.py), in the port
+    with the kernel path's plain version."""
+    _, _, tm, tp = _model_pair(attention_impl="pallas")
+    toks = torch.as_tensor(_tokens(tm.cfg, (2, 12)))
+    full = tm.prefill(tp, {"tokens": toks})
+    cache = tm.init_cache(2, 16, device="cpu")
+    for t in range(12):
+        logits, cache = tm.decode_step(tp, cache, {
+            "token": toks[:, t:t + 1], "pos": torch.full((2,), t)})
+    np.testing.assert_allclose(logits[:, 0].float().numpy(),
+                               full[:, 0].float().numpy(), **BF16)
+    assert torch.equal(logits[:, 0].argmax(-1), full[:, 0].argmax(-1))
+
+
+def test_generate_greedy_matches_jax():
+    jm, jp, tm, tp = _model_pair(dtype="float32")
+    prompts = _tokens(jm.cfg, (2, 8))
+    ref = jserve.generate(jm, jp, jnp.asarray(prompts, jnp.int32), 6, 14,
+                          ShardCtx())
+    out = tserve.generate(tm, tp, torch.as_tensor(prompts), 6, 14)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_generate_sampling_stays_in_vocab():
+    _, _, tm, tp = _model_pair(dtype="float32")
+    prompts = torch.as_tensor(_tokens(tm.cfg, (2, 4)))
+    a = tserve.generate(tm, tp, prompts, 5, 9, temperature=1.0,
+                        generator=torch.Generator().manual_seed(3))
+    b = tserve.generate(tm, tp, prompts, 5, 9, temperature=1.0,
+                        generator=torch.Generator().manual_seed(3))
+    assert torch.equal(a, b) and a.shape == (2, 5)
+    assert bool(((a >= 0) & (a < tm.cfg.vocab_size)).all())
+
+
+def test_serve_cli_on_cpu(capsys):
+    tserve.main(["--smoke", "--batch", "2", "--prompt-len", "4", "--gen",
+                 "3", "--device", "cpu"])
+    assert "generated 2x3 tokens" in capsys.readouterr().out
+
+
+def test_unported_families_raise():
+    base = tconfigs.get_config("llama3.2-1b")
+    for over in (dict(arch_type="ssm"), dict(arch_type="hybrid"),
+                 dict(moe=tconfigs.MoEConfig()),
+                 dict(frontend=tconfigs.FrontendStub("vision", 4, 8))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(dataclasses.replace(base, **over))
+
+
+def test_lm_entry_points_refuse_silent_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    _, tcfg = _cfgs("llama3.2-1b")
+    model = build_model(tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--smoke"])
