@@ -19,6 +19,13 @@ Phases, each of which raises on failure (the script then exits nonzero):
              timed beside ``scaled_dot_product_attention``.  Where a
              window applies, the plain version without it must fall
              outside the bar (the check sees a kernel that drops it).
+             ``ssm_scan`` is held against its plain version at the rwkv
+             serve path's two prefill shapes and a ragged L = 300, both
+             variants, two decay regimes (rwkv6's init and -|N(0, 1)|),
+             bf16 r/k/v with fp32 log_w and all fp32 (y in bf16 within
+             one ulp, in fp32 within 1e-5 / 1e-4, the state within
+             1e-5 / 1e-4), timed at the serve shapes, and against the
+             fp32 token-by-token recurrence at (1, 512).
 4. main path — the ST-LF paper pipeline at its full-size setting (10
              devices x 250 samples, 300 local SGD steps, Algorithm 1 with
              tau=4, T=25, the default solver), through the port's entry
@@ -35,10 +42,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
              The logit checks test the whole stack's casts; the kernel
              itself is held, element by element, against its plain
              version on layer 0's own q, k, v of both prompts.
+5b. serve-rwkv — rwkv6-1.6b at full width and depth (24 layers, seeded
+             weights drawn on the card): prefill of (4, 2048) and
+             (1, 16384) prompts, counted: ``ssm_scan`` must have run
+             exactly 48 times, and 24 more at each later prefill; then
+             ``serve.generate`` of 32 greedy tokens after a (4, 64)
+             prompt, and JAX's serving invariant at (4, 64) and (2, 300);
+             the kernel against its plain version on layer 0's own
+             r, k, v, log_w of both prompts.
 6. checks  — the disagreement kernel on the trained models' predictions
              and the transfer against their plain versions, and the GPU
              against the port on the CPU at a small size (the ST-LF
-             pieces, and the LM's prefill and greedy tokens).
+             pieces, and the LM's and rwkv6's prefill and greedy tokens).
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler window over
 each phase (the device's busy share, top kernels) after phase 6.
@@ -79,6 +94,9 @@ KERNEL_META = {
         source="src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:31"),
+    "ssm_scan": dict(
+        source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan/kernel.py:36"),
 }
 LM_ARCH = "llama3.2-1b"
 # (B, S) of the serve path's two prefills: a batch of 2k prompts, and one
@@ -92,6 +110,20 @@ LM_TOL = dict(atol=0.15, rtol=0.05)
 # of the value (<= 2^-7 of it); fp32 is the JAX package's own bar
 FLASH_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7),
              torch.float32: dict(atol=3e-5, rtol=1e-4)}
+RWKV_ARCH = "rwkv6-1.6b"
+# (B, L) of the rwkv serve path's two prefills: a batch of 2k prompts,
+# and one long prompt at batch 1, the case a linear-attention model is
+# chosen for
+RWKV_PREFILLS = [(4, 2048), (1, 16384)]
+# ssm_scan against its plain version: y in bf16 within one bf16 ulp (both
+# sum in fp32 and round once), y in fp32 within summation order, the
+# final state (fp32) likewise
+SSM_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7),
+           torch.float32: dict(atol=1e-5, rtol=1e-4)}
+SSM_STATE_TOL = dict(atol=1e-5, rtol=1e-4)
+# the kernel against JAX's fp32 token-by-token recurrence: the decays
+# are rounded differently (exp of a cumsum against a product of exps)
+RECUR_TOL = dict(atol=1e-3, rtol=1e-4)
 
 
 def log(msg: str) -> None:
@@ -478,6 +510,309 @@ def phase_serve(counted, report):
     return launches, model, params
 
 
+def ssm_flops(b, l, h, dk, dv, chunk, variant):
+    """Flops of one chunked-GLA call: per chunk and head, the live
+    (query, key) pairs (C(C-1)/2 for rwkv, C(C+1)/2 for mamba) x
+    (2 Dk + 2 Dv), plus 4 C Dk Dv for the state's readout and update;
+    the last chunk counts its own rows only."""
+    total = 0
+    for n0 in range(0, l, chunk):
+        c = min(chunk, l - n0)
+        pairs = c * (c - 1) // 2 + (c if variant == "mamba" else 0)
+        total += pairs * (2 * dk + 2 * dv) + 4 * c * dk * dv
+    return total * b * h
+
+
+def ssm_inputs(b, l, h, d, regime, dtype, gen):
+    """q, k, v in ``dtype`` (std 1), log_w fp32 in one of two regimes:
+    "init" (-softplus(N(0, 4e-4)), rwkv6's decay at JAX's init, ~ln 2 a
+    step) or "abs" (-|N(0, 1)|); bonus and a nonzero initial state."""
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(b, l, h, d, device=dev, generator=gen).to(dtype)
+               for _ in range(3))
+    z = torch.randn(b, l, h, d, device=dev, generator=gen)
+    lw = -torch.nn.functional.softplus(z * 4e-4) if regime == "init" \
+        else -z.abs()
+    bonus = torch.randn(h, d, device=dev, generator=gen)
+    s0 = torch.randn(b, h, d, d, device=dev, generator=gen)
+    return q, k, v, lw, bonus, s0
+
+
+def check_ssm(ss, q, k, v, lw, chunk, variant, bonus, s0, what):
+    """The kernel against its plain version on the same inputs: y within
+    SSM_TOL of its dtype, the final state within SSM_STATE_TOL, all
+    finite.  Returns (max abs err of y, of the state, largest error over
+    the bar, RMS of y)."""
+    y, s = ss.gla_chunked(q, k, v, lw, chunk=chunk, variant=variant,
+                          bonus=bonus, initial_state=s0)
+    torch.cuda.synchronize()
+    py, ps = ss.gla_chunked_plain(q, k, v, lw, chunk=chunk, variant=variant,
+                                  bonus=bonus, initial_state=s0)
+    tol = SSM_TOL[v.dtype]
+    d = (y.float() - py.float()).abs()
+    err, s_err = float(d.max()), float((s - ps).abs().max())
+    ratio = float((d / (tol["atol"] + tol["rtol"] * py.float().abs())).max())
+    rms = float(py.float().square().mean().sqrt())
+    if y.dtype != v.dtype or not (torch.isfinite(y).all()
+                                  and torch.isfinite(s).all()) \
+            or not torch.allclose(y.float(), py.float(), **tol) \
+            or not torch.allclose(s, ps, **SSM_STATE_TOL):
+        raise AssertionError(
+            f"ssm_scan {what}: y max abs err {err} (largest error "
+            f"{ratio:.3g} x the bar {tol}, {_beyond(y, py, tol)} elements "
+            f"beyond; y RMS {rms:.3g}), state max abs err {s_err} "
+            f"(bar {SSM_STATE_TOL}, {_beyond(s, ps, SSM_STATE_TOL)} "
+            f"beyond), finite {bool(torch.isfinite(y).all())}")
+    return err, s_err, ratio, rms
+
+
+def phase_ssm(ss, report):
+    """``ssm_scan`` against its plain version on the card: the rwkv serve
+    path's two prefill shapes (32 heads of 64, chunk 128) and a ragged
+    L = 300, both variants, both decay regimes, bf16 r/k/v with fp32
+    log_w (the model's) and all fp32, with bonus and a nonzero initial
+    state; timed at the serve shapes (rwkv, bf16, init decay); and the
+    kernel against the fp32 token-by-token recurrence at (1, 512)."""
+    from repro_torch.nn.linear_attn import gla_decode
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h, d, chunk = 32, 64, 128
+    rows = []
+    for b, l in RWKV_PREFILLS + [(2, 300)]:
+        for variant in ("rwkv", "mamba"):
+            for regime in ("init", "abs"):
+                for dt in (torch.bfloat16, torch.float32):
+                    x = ssm_inputs(b, l, h, d, regime, dt, gen)
+                    dtype = str(dt).replace("torch.", "")
+                    what = (f"({b}, {l}, {h}, {d}) {variant} {regime} "
+                            f"{dtype}")
+                    err, s_err, ratio, rms = check_ssm(
+                        ss, *x[:4], chunk, variant, *x[4:], what)
+                    row = dict(shape=[b, l, h, d], variant=variant,
+                               regime=regime, dtype=dtype, max_abs_err=err,
+                               state_max_abs_err=s_err, err_over_bar=ratio,
+                               y_rms=rms)
+                    note = (f"y max abs err {err:.3g} ({ratio:.3g} of the "
+                            f"bar {SSM_TOL[dt]}, y RMS {rms:.3g}), state "
+                            f"{s_err:.3g}")
+                    timed = (variant == "rwkv" and regime == "init"
+                             and dt == torch.bfloat16 and l > 300)
+                    if timed:
+                        q, k, v, lw, bonus, s0 = x
+                        flops = ssm_flops(b, l, h, d, d, chunk, variant)
+                        # q, k, v in, y out in their dtype; log_w fp32
+                        # in; the state in and out fp32
+                        nbytes = (q.numel() * (4 * q.element_size() + 4)
+                                  + 2 * 4 * b * h * d * d)
+                        b_ms, b_by = bound(nbytes, flops)
+                        run = lambda: ss.gla_chunked(  # noqa: E731
+                            q, k, v, lw, chunk=chunk, variant="rwkv",
+                            bonus=bonus, initial_state=s0)
+                        plain = lambda: ss.gla_chunked_plain(  # noqa: E731
+                            q, k, v, lw, chunk=chunk, variant="rwkv",
+                            bonus=bonus, initial_state=s0)
+                        row.update(flops=flops, bytes=nbytes,
+                                   ms=cuda_ms(run, 10),
+                                   plain_ms=cuda_ms(plain, 2),
+                                   library_ms=None, bound_ms=b_ms,
+                                   bound_by=b_by)
+                        log(f"[kernels] ssm_scan {row['shape']} rwkv bf16 "
+                            f"init: {row['ms']:.4f} ms kernel, "
+                            f"{row['plain_ms']:.4f} ms plain, library none, "
+                            f"bound {b_ms:.4f} ms ({b_by}); {note}")
+                    else:
+                        log(f"[kernels] ssm_scan {what}: {note}")
+                    rows.append(row)
+                    del x
+        torch.cuda.empty_cache()
+    rows.sort(key=lambda r: "ms" not in r)       # the timed rows first
+
+    # against JAX's fp32 recurrence, step by step, at rwkv6's init decay
+    for variant in ("rwkv", "mamba"):
+        q, k, v, lw, bonus, _ = ssm_inputs(1, 512, h, d, "init",
+                                           torch.float32, gen)
+        y, s = ss.gla_chunked(q, k, v, lw, chunk=chunk, variant=variant,
+                              bonus=bonus)
+        st = torch.zeros(1, h, d, d, device=q.device)
+        ys = []
+        for t in range(512):
+            yt, st = gla_decode(q[:, t], k[:, t], v[:, t], lw[:, t], st,
+                                variant=variant, bonus=bonus)
+            ys.append(yt)
+        ref = torch.stack(ys, 1)
+        err = float((y - ref).abs().max())
+        if not (torch.isfinite(y).all() and torch.allclose(y, ref, **RECUR_TOL)
+                and torch.allclose(s, st, **RECUR_TOL)):
+            raise AssertionError(f"ssm_scan {variant} against the fp32 "
+                                 f"recurrence at (1, 512): max abs err "
+                                 f"{err} beyond {RECUR_TOL}")
+        log(f"[kernels] ssm_scan (1, 512, {h}, {d}) {variant} init, fp32: "
+            f"against the token-by-token recurrence max abs err {err:.3g} "
+            f"(y RMS {float(ref.square().mean().sqrt()):.3g}, bar "
+            f"{RECUR_TOL}); every output finite")
+        report.setdefault("ssm_scan_vs_recurrence", []).append(dict(
+            shape=[1, 512, h, d], variant=variant, regime="init",
+            dtype="float32", max_abs_err=err))
+    return rows
+
+
+def _decode_gap(dec, pre, what):
+    """Decode's last-token logits against prefill's: within LM_TOL, and
+    argmax equal in every row whose top-2 gap exceeds twice the measured
+    max |dlogit|.  Returns (max |dlogit|, smallest top-2 gap, rows held
+    to argmax equality)."""
+    dec, pre = dec.float(), pre.float()
+    diff = float((dec - pre).abs().max())
+    top2 = pre.topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).flatten()
+    held = gaps > 2 * diff
+    same = (dec.argmax(-1) == pre.argmax(-1)).flatten()
+    if not (torch.isfinite(dec).all() and torch.allclose(dec, pre, **LM_TOL)
+            and bool(same[held].all())):
+        raise AssertionError(f"{what}: max |dlogit| {diff:.4g} (tolerance "
+                             f"{LM_TOL}), argmax equal {same.tolist()}, "
+                             f"top-2 gaps {gaps.tolist()}")
+    return diff, float(gaps.min()), int(held.sum())
+
+
+def rwkv_layer0(model, params, tokens):
+    """Layer 0's r, k, v, log_w and bonus as ``RWKVModel.prefill`` hands
+    them to the scan: the prompt's embedding, rmsnorms, token shift from
+    a zero state, projections."""
+    from repro_torch.models.common import take_layer
+    from repro_torch.nn import rwkv
+    from repro_torch.nn.layers import rmsnorm
+    cfg = model.cfg
+    p = take_layer(params["layers"], 0)
+    x = rmsnorm(model._embed(params, tokens), p["ln1"], cfg.norm_eps)
+    r, k, v, _, log_w = rwkv._rkvgw(
+        p["att"], x, rwkv._shift(x, torch.zeros_like(x[:, 0])),
+        cfg.num_heads, cfg.resolved_head_dim(), torch.bfloat16)
+    return r, k, v, log_w, p["att"]["bonus"]
+
+
+def phase_serve_rwkv(counted, report):
+    """rwkv6-1.6b at full width and depth through the port's serving entry
+    points: ``RWKVModel.prefill`` (counted: 24 ``ssm_scan`` launches
+    each), ``serve.generate``, JAX's prefill/decode invariant at (4, 64)
+    and (2, 300), and the kernel against its plain version on layer 0's
+    own inputs of both counted prompts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+    from repro_torch.nn.param import count_params
+
+    ss = counted["ssm_scan"]
+    dev = torch.device("cuda")
+    cfg = get_config(RWKV_ARCH)
+    model = build_model(cfg)
+    params, init_s = _timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = count_params(params)
+    log(f"[serve-rwkv] {cfg.name}: {n_params:,} parameters (float32, drawn "
+        f"on the card from seed 0) in {init_s:.3f} s; {cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim()}, chunk {cfg.ssm.chunk}; compute dtype "
+        f"{cfg.dtype}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, shape, device=dev,
+                             generator=gen) for shape in RWKV_PREFILLS]
+
+    # the main path: two full-width prefills through the kernel, counted
+    zero_counts(counted)
+    first = [_timed(lambda p=p: model.prefill(params, {"tokens": p}))
+             for p in prompts]
+    launches = read_counts(counted)
+    log(f"[serve-rwkv] launches in the serve path: {launches}")
+    if launches["ssm_scan"] != 2 * cfg.num_layers:
+        raise AssertionError(f"ssm_scan launched {launches['ssm_scan']} "
+                             f"times in two prefills, not "
+                             f"{2 * cfg.num_layers}")
+    out = dict(params=n_params, init_s=init_s, launches=launches,
+               prefill=[])
+    for (b, s), p, (logits, first_s) in zip(RWKV_PREFILLS, prompts, first):
+        if logits.shape != (b, 1, cfg.vocab_size) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(
+                f"prefill logits {tuple(logits.shape)}, finite "
+                f"{bool(torch.isfinite(logits).all())}")
+        before = ss.launches
+        torch.cuda.reset_peak_memory_stats()
+        again, steady_s = _timed(lambda: model.prefill(params,
+                                                       {"tokens": p}))
+        peak = torch.cuda.max_memory_allocated()
+        if ss.launches != before + cfg.num_layers:
+            raise AssertionError("a later prefill did not launch the "
+                                 "kernel once per layer")
+        if not torch.equal(again, logits):
+            raise AssertionError(f"prefill {(b, s)} is not deterministic")
+        r, k, v, lw, bonus = rwkv_layer0(model, params, p)
+        l0_err, l0_s_err, l0_ratio, l0_rms = check_ssm(
+            ss_ops, r, k, v, lw, cfg.ssm.chunk, "rwkv", bonus, None,
+            f"layer 0 of prefill {(b, s)}")
+        del r, k, v, lw
+        out["prefill"].append(dict(
+            shape=[b, s], first_s=first_s, steady_s=steady_s,
+            tok_per_s=b * s / steady_s, peak_gb=peak / 1e9,
+            layer0_max_abs_err=l0_err, layer0_state_max_abs_err=l0_s_err,
+            layer0_err_over_bar=l0_ratio, layer0_y_rms=l0_rms))
+        log(f"[serve-rwkv] prefill {(b, s)}: first call {first_s:.4f} s, "
+            f"again {steady_s:.4f} s ({b * s / steady_s:,.0f} tokens/s), "
+            f"peak memory {peak / 1e9:.2f} GB")
+        log(f"[serve-rwkv] layer 0 of prefill {(b, s)}: kernel vs plain on "
+            f"the model's r, k, v, log_w: y max abs err {l0_err:.3g} "
+            f"({l0_ratio:.3g} of the bar {SSM_TOL[torch.bfloat16]}, y RMS "
+            f"{l0_rms:.3g}), state {l0_s_err:.3g}")
+        torch.cuda.empty_cache()
+
+    # serve.generate: a (4, 64) prompt through decode_step, 32 greedy
+    b, s, n_gen = 4, 64, 32
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=gen)
+    generate(model, params, prompt[:, :2], 2, 4)          # warm-up
+    toks, gen_s = _timed(lambda: generate(model, params, prompt, n_gen,
+                                          s + n_gen))
+    steps = s + n_gen
+    if toks.shape != (b, n_gen) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate gave {tuple(toks.shape)} tokens "
+                             f"out of range")
+    out["generate"] = dict(batch=b, prompt=s, gen=n_gen, wall_s=gen_s,
+                           decode_steps=steps,
+                           ms_per_decode_step=gen_s / steps * 1e3)
+    log(f"[serve-rwkv] generate {(b, s)} + {n_gen} greedy tokens: "
+        f"{gen_s:.3f} s, {steps} decode steps, {gen_s / steps * 1e3:.3f} ms "
+        f"per step (host clock)")
+
+    # JAX's serving invariant: decode_step token by token from the zero
+    # state reaches prefill's last-token logits; (4, 64) is one padded
+    # chunk, (2, 300) crosses two chunk boundaries with a ragged tail
+    out["decode_vs_prefill"] = []
+    for b, s in ((4, 64), (2, 300)):
+        prompt = prompt if (b, s) == (4, 64) else torch.randint(
+            0, cfg.vocab_size, (b, s), device=dev, generator=gen)
+        cache = model.init_cache(b, s, device=dev)
+        for i in range(s):
+            dec, cache = model.decode_step(params, cache, {
+                "token": prompt[:, i:i + 1],
+                "pos": torch.full((b,), i, device=dev)})
+        pre = model.prefill(params, {"tokens": prompt})
+        diff, gap, held = _decode_gap(dec, pre, f"decode vs prefill {(b, s)}")
+        if (b, s) == (4, 64) and not torch.equal(toks[:, 0],
+                                                  dec[:, 0].argmax(-1)):
+            raise AssertionError("generate's first token is not the argmax "
+                                 "of the decode pass's logits")
+        out["decode_vs_prefill"].append(dict(
+            shape=[b, s], max_abs_dlogit=diff, min_top2_gap=gap,
+            rows_held_to_argmax=held))
+        log(f"[serve-rwkv] decode vs prefill {(b, s)} at the prompt's last "
+            f"token: max |dlogit| {diff:.4g} (bar {LM_TOL}), smallest top-2 "
+            f"gap {gap:.4g}; argmax equal in the {held} of {b} rows whose "
+            f"gap exceeds twice it")
+    report["serve_rwkv"] = out
+    return launches, model, params
+
+
 def phase_main_path(ac, dg, counted, report):
     """The paper pipeline at full size through the port's entry points;
     ``counted`` maps every kernel's name to its wrapper."""
@@ -575,11 +910,11 @@ def phase_main_path(ac, dg, counted, report):
     return launches, state, stlf
 
 
-def phase_profile(state, stlf, lm, report):
+def phase_profile(state, stlf, lm, rwkv_lm, report):
     """``--profile`` only: torch.profiler over short windows of each phase
-    on the main path's state and of the serve path (``lm`` = model,
-    params); the device's busy share of each window (kernel time summed
-    over wall time) and its top kernels."""
+    on the main path's state and of the two serve paths (``lm`` and
+    ``rwkv_lm`` = model, params); the device's busy share of each window
+    (kernel time summed over wall time) and its top kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.problem import STLFProblem
     from repro_torch.core.solver import solve_stlf
@@ -618,6 +953,17 @@ def phase_profile(state, stlf, lm, report):
     windows["prefill_4x2048"] = lambda: model.prefill(params,
                                                       {"tokens": toks})
     windows["decode_10_steps_b4"] = decode_10
+    r_model, r_params = rwkv_lm
+    r_toks = toks % r_model.cfg.vocab_size
+    r_cache = r_model.init_cache(4, 16, device=dev)
+
+    def rwkv_decode_10():
+        for i in range(10):
+            r_model.decode_step(r_params, r_cache,
+                                {"token": r_toks[:, i:i + 1], "pos": pos[i]})
+    windows["rwkv_prefill_4x2048"] = lambda: r_model.prefill(
+        r_params, {"tokens": r_toks})
+    windows["rwkv_decode_10_steps_b4"] = rwkv_decode_10
     out = {}
     for name, fn in windows.items():
         fn()
@@ -717,6 +1063,35 @@ def phase_small_lm():
         f"equal")
 
 
+def phase_small_rwkv():
+    """rwkv6 on the GPU (through ``ssm_scan``) against the port on the CPU
+    (its plain version; the CPU tests hold that against the JAX package),
+    in float32 at ``reduced()`` (2 layers, d_model 256, chunk 32)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config(RWKV_ARCH).reduced(),
+                              dtype="float32")
+    model = build_model(cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 80))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = model.init(torch.Generator().manual_seed(0), device=dev)
+        t = torch.as_tensor(toks, device=dev)
+        out[dev] = (model.prefill(params, {"tokens": t}).cpu(),
+                    generate(model, params, t[:, :16], 8, 24).cpu())
+    diff = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    if not torch.allclose(out["cuda"][0], out["cpu"][0], atol=1e-3,
+                          rtol=0.0):
+        raise AssertionError(f"rwkv prefill: GPU differs from CPU by {diff}")
+    if not torch.equal(out["cuda"][1], out["cpu"][1]):
+        raise AssertionError("rwkv generate: GPU tokens differ from CPU")
+    log(f"[small] rwkv prefill (80 tokens, chunk {cfg.ssm.chunk}) agrees on "
+        f"GPU and CPU (max |dlogit| {diff:.3g}); greedy tokens equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -728,9 +1103,11 @@ def main() -> int:
     from repro_torch.kernels.alpha_combine import ops as ac
     from repro_torch.kernels.disagreement import ops as dg
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssm_scan import ops as ss
     counted = {"alpha_combine": ac.alpha_combine,
                "disagreement": dg.disagreement_counts,
-               "flash_attention": fa.flash_attention}
+               "flash_attention": fa.flash_attention,
+               "ssm_scan": ss.gla_chunked}
 
     # 1. device
     resolve_device("cuda")                    # also turns TF32 off
@@ -756,21 +1133,29 @@ def main() -> int:
     rows = phase_kernels(ac, dg, report)
     rows["flash_attention"] = phase_flash(fa)
     torch.cuda.empty_cache()
+    rows["ssm_scan"] = phase_ssm(ss, report)
+    torch.cuda.empty_cache()
 
     # 4. main path at full size, counted
     launches, state, stlf = phase_main_path(ac, dg, counted, report)
 
     # 5. the serve path at full width, counted
     serve_launches, model, params = phase_serve(counted, report)
+    # 5b. the rwkv serve path at full width and depth, counted
+    rwkv_launches, rwkv_model, rwkv_params = phase_serve_rwkv(counted,
+                                                              report)
     # each kernel's count from the path that runs it
     launches = dict(launches,
-                    flash_attention=serve_launches["flash_attention"])
+                    flash_attention=serve_launches["flash_attention"],
+                    ssm_scan=rwkv_launches["ssm_scan"])
 
     # 6. GPU against the CPU port on small inputs
     phase_small_reference()
     phase_small_lm()
+    phase_small_rwkv()
     if "--profile" in sys.argv[1:]:
-        phase_profile(state, stlf, (model, params), report)
+        phase_profile(state, stlf, (model, params),
+                      (rwkv_model, rwkv_params), report)
 
     kernels = []
     for name, rs in rows.items():

@@ -1,7 +1,8 @@
 """Architecture configs the port can build (copies of ``repro.configs``).
 
-Only the dense decoders are registered; the other families' configs come
-with the slices that port their models (``ROADMAP.md`` queue 1, item 14).
+The dense decoders and rwkv6-1.6b are registered; the other families'
+configs come with the slices that port their models (``ROADMAP.md``
+queue 1, item 14).
 """
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig, MoEConfig, SSMConfig, HybridConfig, EncDecConfig,
@@ -10,7 +11,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _LOADED = False
 
-_MODULES = ["llama3p2_1b", "repro_100m"]
+_MODULES = ["rwkv6_1p6b", "llama3p2_1b", "repro_100m"]
 
 
 def load_all():

@@ -50,10 +50,10 @@ ATTENTION_IMPL_FROM_JAX = {"xla": "dot", "chunked": "chunked",
                            "pallas": "kernel"}
 
 
-def lm_params_from_jax(tree: Mapping[str, Any],
-                       device: DeviceLike = None) -> Dict[str, Any]:
-    """A nested dict of numpy arrays in JAX's layout (``jax.tree_util.
-    tree_map(np.asarray, model.init(key))``) -> the same tree of tensors
+def lm_params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
+    """A nested dict (or tuple, or list) of numpy arrays in JAX's layout
+    (``jax.tree_util.tree_map(np.asarray, model.init(key))``, or a
+    model's cache such as RWKV's state tuple) -> the same tree of tensors
     on ``device``, each in its own dtype (bfloat16 arrays included)."""
     dev = resolve_device(device)
 
@@ -64,14 +64,22 @@ def lm_params_from_jax(tree: Mapping[str, Any],
                                 device=dev).to(torch.bfloat16)
         return torch.tensor(a, device=dev)
 
-    return {k: lm_params_from_jax(v, dev) if isinstance(v, Mapping)
-            else leaf(v) for k, v in tree.items()}
+    def conv(t):
+        if isinstance(t, Mapping):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return type(t)(conv(v) for v in t)
+        return leaf(t)
+
+    return conv(tree)
 
 
-def lm_params_to_numpy(params: Mapping[str, Any]) -> Dict[str, Any]:
+def lm_params_to_numpy(params: Any) -> Any:
     """Inverse of ``lm_params_from_jax`` (bfloat16 leaves come back as
     float32 arrays, which hold them exactly)."""
-    return {k: lm_params_to_numpy(v) if isinstance(v, Mapping)
-            else (v.detach().float() if v.dtype == torch.bfloat16
-                  else v.detach()).cpu().numpy()
-            for k, v in params.items()}
+    if isinstance(params, Mapping):
+        return {k: lm_params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (tuple, list)):
+        return type(params)(lm_params_to_numpy(v) for v in params)
+    v = params.detach()
+    return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()

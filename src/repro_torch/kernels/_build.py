@@ -22,7 +22,7 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-NAMES = ("alpha_combine", "disagreement", "flash_attention")
+NAMES = ("alpha_combine", "disagreement", "flash_attention", "ssm_scan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

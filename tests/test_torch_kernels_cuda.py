@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions on the card,
-and the LM prefill through the flash kernel.
+and the LM prefills through the flash and ssm_scan kernels.
 
 Needs a CUDA device, ``nvcc`` and nothing of JAX; skips without a GPU.
 On the GPU host: ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -148,3 +148,80 @@ def test_prefill_goes_through_the_flash_kernel(cuda):
     ref = build_model(dataclasses.replace(cfg, attention_impl="dot")) \
         .prefill(params, {"tokens": toks})
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+# ssm_scan: (b, l, h, dk, dv, chunk, variant), tests/test_kernels.py's
+# grid, ragged tails (50, 300), a ragged Dv slice (24), and rwkv6-1.6b's
+# own head and chunk; the last two have B*H = 128 blocks, enough for the
+# kernel's 64-column Dv slices (the others take 16-column slices)
+SSM_GRID = [
+    (2, 64, 2, 16, 16, 16, "mamba"),
+    (1, 96, 3, 32, 32, 32, "rwkv"),
+    (2, 50, 2, 16, 24, 16, "mamba"),
+    (1, 128, 1, 64, 64, 32, "rwkv"),
+    (1, 300, 4, 64, 64, 128, "rwkv"),
+    (2, 300, 3, 64, 64, 128, "mamba"),
+    (4, 300, 32, 64, 64, 128, "rwkv"),
+    (8, 80, 16, 32, 24, 32, "mamba"),
+]
+
+
+@pytest.mark.cuda
+# y in bf16: kernel and plain version sum in fp32 and round once, so they
+# differ by at most one bf16 ulp of the value; fp32 within summation order
+@pytest.mark.parametrize("dtype,tol", [(torch.float32,
+                                        dict(atol=1e-5, rtol=1e-4)),
+                                       (torch.bfloat16,
+                                        dict(atol=1e-5, rtol=2.0 ** -7))])
+@pytest.mark.parametrize("b,l,h,dk,dv,chunk,variant", SSM_GRID)
+def test_ssm_scan_kernel_on_card(cuda, b, l, h, dk, dv, chunk, variant,
+                                 dtype, tol):
+    from repro_torch.kernels.ssm_scan import ops as ss
+    q, k = (torch.as_tensor(RNG.normal(size=(b, l, h, dk)), dtype=dtype,
+                            device=cuda) for _ in range(2))
+    v = torch.as_tensor(RNG.normal(size=(b, l, h, dv)), dtype=dtype,
+                        device=cuda)
+    # log_w stays fp32, as the model passes it
+    lw = -torch.as_tensor(np.abs(RNG.normal(size=(b, l, h, dk))),
+                          dtype=torch.float32, device=cuda)
+    bonus = torch.as_tensor(RNG.normal(size=(h, dk)), dtype=torch.float32,
+                            device=cuda)
+    s0 = torch.as_tensor(RNG.normal(size=(b, h, dk, dv)),
+                         dtype=torch.float32, device=cuda)
+    before = ss.gla_chunked.launches
+    y, s = ss.gla_chunked(q, k, v, lw, chunk=chunk, variant=variant,
+                          bonus=bonus, initial_state=s0)
+    torch.cuda.synchronize()
+    assert ss.gla_chunked.launches == before + 1
+    assert y.dtype == dtype and y.shape == (b, l, h, dv)
+    py, ps = ss.gla_chunked_plain(q, k, v, lw, chunk=chunk, variant=variant,
+                                  bonus=bonus, initial_state=s0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    torch.testing.assert_close(y.float(), py.float(), **tol)
+    torch.testing.assert_close(s, ps, atol=1e-5, rtol=1e-4)
+    with pytest.raises(ValueError):
+        ss.gla_chunked(q, k.cpu(), v, lw, chunk=chunk)     # no fallback
+    with pytest.raises(ValueError):
+        ss.gla_chunked(q, k, v, lw, chunk=24)              # not 16 | chunk
+
+
+@pytest.mark.cuda
+def test_prefill_goes_through_the_ssm_scan_kernel(cuda):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops as ss
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(
+        get_config("rwkv6-1.6b").reduced(num_layers=2, d_model=128),
+        dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab_size, (2, 80)),
+                           device=cuda)
+    before = ss.gla_chunked.launches
+    out = model.prefill(params, {"tokens": toks})
+    assert ss.gla_chunked.launches == before + cfg.num_layers
+    # a CPU generator draws the same weights for either device
+    cpu = model.prefill(model.init(torch.Generator().manual_seed(0),
+                                   device="cpu"), {"tokens": toks.cpu()})
+    torch.testing.assert_close(out.cpu(), cpu, atol=1e-4, rtol=1e-4)

@@ -66,7 +66,8 @@ def _as_port(d):
     return dict(d, attention_impl=IMPLS[d["attention_impl"]])
 
 
-@pytest.mark.parametrize("name", ["llama3.2-1b", "repro-100m"])
+@pytest.mark.parametrize("name",
+                         ["llama3.2-1b", "repro-100m", "rwkv6-1.6b"])
 def test_config_copies_match_jax(name):
     j, t = jget_config(name), tconfigs.get_config(name)
     assert dataclasses.asdict(t) == _as_port(dataclasses.asdict(j))
@@ -76,7 +77,8 @@ def test_config_copies_match_jax(name):
     assert t.resolved_head_dim() == j.resolved_head_dim()
     assert t.supports_long_context == j.supports_long_context
     assert convert.ATTENTION_IMPL_FROM_JAX == IMPLS
-    assert sorted(tconfigs.all_configs()) == ["llama3.2-1b", "repro-100m"]
+    assert sorted(tconfigs.all_configs()) == ["llama3.2-1b", "repro-100m",
+                                              "rwkv6-1.6b"]
 
 
 def test_param_specs_and_count_match_jax():
@@ -307,11 +309,19 @@ def test_serve_cli_on_cpu(capsys):
 
 def test_unported_families_raise():
     base = tconfigs.get_config("llama3.2-1b")
-    for over in (dict(arch_type="ssm"), dict(arch_type="hybrid"),
+    for over in (dict(arch_type="hybrid"),
                  dict(moe=tconfigs.MoEConfig()),
                  dict(frontend=tconfigs.FrontendStub("vision", 4, 8))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(base, **over))
+
+
+def test_build_model_gives_rwkv_for_ssm():
+    from repro_torch.models.rwkv_model import RWKVModel
+    for cfg in (tconfigs.get_config("rwkv6-1.6b"),
+                dataclasses.replace(tconfigs.get_config("llama3.2-1b"),
+                                    arch_type="ssm")):
+        assert isinstance(build_model(cfg), RWKVModel)
 
 
 def test_lm_entry_points_refuse_silent_cpu():
