@@ -7,18 +7,22 @@ Phases, each of which raises on failure (the script then exits nonzero):
 
 1. device  — requires CUDA; prints the card's name and power limit.
 2. build   — compiles every CUDA kernel of the port from its source in
-             this checkout (``build/repro_torch/``), all at once.
+             this checkout (``build/repro_torch/``), all at once, and
+             checks with ``cuobjdump -sass`` that the bf16 flash kernel
+             runs on the tensor cores (HGMMA instructions).
 3. kernels — holds each kernel against its plain PyTorch version on the
              card (``alpha_combine`` to rtol/atol 1e-5, ``disagreement``
              exactly) and times kernel, plain version and one PyTorch
              library call with CUDA events.
              ``flash_attention`` is held against its plain version at
              the serve path's two prefill shapes in bf16 (within one
-             bf16 ulp: rtol 2^-7, atol 1e-5) and in fp32, and on the JAX
-             package's test grid in fp32 (atol 3e-5, rtol 1e-4), and
-             timed beside ``scaled_dot_product_attention``.  Where a
-             window applies, the plain version without it must fall
-             outside the bar (the check sees a kernel that drops it).
+             bf16 ulp: rtol 2^-7, atol 1e-5; the tensor-core kernel) and
+             in fp32 (the SIMT kernel), and on the JAX package's test
+             grid in fp32 (atol 3e-5, rtol 1e-4), and timed beside
+             ``scaled_dot_product_attention`` (its own error against the
+             plain version printed too).  Where a window applies, the
+             plain version without it must fall outside the bar (the
+             check sees a kernel that drops it).
              ``ssm_scan`` is held against its plain version at the rwkv
              serve path's two prefill shapes and a ragged L = 300, both
              variants, two decay regimes (rwkv6's init and -|N(0, 1)|),
@@ -66,6 +70,7 @@ run took.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -152,6 +157,38 @@ def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def demangle(_build, symbol: str) -> str:
+    """``symbol`` without its namespaces and parameters, through the
+    toolkit's cu++filt: e.g. ``flash_fwd_tc_kernel<64>``."""
+    text = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cu++filt"), symbol],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    text = text.strip().replace("(anonymous namespace)::", "")
+    return text.replace("(int)", "").split("(")[0].split("::")[-1]
+
+
+def check_flash_sass(_build):
+    """The bf16 flash kernel compiled to Hopper's warpgroup MMAs: every
+    instance of ``flash_fwd_tc_kernel`` in the library must hold HGMMA
+    instructions (a kernel compiled to FMAs fails).  Returns
+    {instance: HGMMA count}."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build._target("flash_attention"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "flash_fwd_tc_kernel" in name:
+            d = re.search(r"flash_fwd_tc_kernelILi(\d+)E", name).group(1)
+            counts[f"flash_fwd_tc_kernel<{d}>"] = len(
+                re.findall(r"\bHGMMA\b", fn))
+    if len(counts) != 4 or not all(counts.values()):
+        raise AssertionError(f"flash_attention: the bf16 kernel's SASS "
+                             f"lacks HGMMA instructions: {counts}")
+    return counts
 
 
 def zero_counts(kernels):
@@ -300,11 +337,13 @@ def phase_flash(fa):
                 for _ in range(2))
         shape = [b, sq, sk, h, kv, d]
         dtype = str(dt).replace("torch.", "")
+        route = "tensor cores (wgmma, bf16)" if dt == bf16 \
+            else "SIMT (fp32 FMAs)"
         err, moved, rms = check_flash(
             fa, q, k, v, causal, window,
             f"{shape} {dtype} causal={causal} window={window}")
         row = dict(shape=shape, causal=causal, window=window, dtype=dtype,
-                   max_abs_err=err, out_rms=rms,
+                   kernel=route, max_abs_err=err, out_rms=rms,
                    tol=FLASH_TOL[dt], beyond_bar_without_window=moved)
         note = f"max abs err {err:.3g} (output RMS {rms:.3g}, bar " \
                f"{FLASH_TOL[dt]})" + ("" if moved is None else
@@ -321,24 +360,39 @@ def phase_flash(fa):
                 i = torch.arange(sq, device=dev)[:, None] + (sk - sq)
                 j = torch.arange(sk, device=dev)[None, :]
                 mask = (j <= i) & (j > i - window)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=mask is None and causal, enable_gqa=True)
+            # SDPA against the same plain version, beside the kernel
+            plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window)
+            lib = sdpa().transpose(1, 2)
+            row.update(sdpa_max_abs_err=float(
+                (lib.float() - plain.float()).abs().max()),
+                sdpa_beyond_bar=_beyond(lib, plain, FLASH_TOL[dt]))
+            del lib, plain
             row.update(
                 pairs=pairs, flops=4 * d * pairs, bytes=nbytes,
                 ms=cuda_ms(lambda: fa.flash_attention(
                     q, k, v, causal=causal, window=window), 10),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
                     q, k, v, causal=causal, window=window), 2),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask,
-                    is_causal=mask is None and causal, enable_gqa=True),
-                    10),
+                library_ms=cuda_ms(sdpa, 10),
                 bound_ms=b_ms, bound_by=b_by)
+            row["tflops"] = 4 * d * pairs / row["ms"] / 1e9
             log(f"[kernels] flash_attention {shape} {dtype} window="
-                f"{window}: {row['ms']:.4f} ms kernel, {row['plain_ms']:.4f}"
-                f" ms plain, sdpa {row['library_ms']:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}); {note}")
+                f"{window} on the {route}: {row['ms']:.4f} ms kernel "
+                f"({row['tflops']:.1f} TFLOP/s of 4 D per live pair), "
+                f"{row['plain_ms']:.4f} ms plain, sdpa "
+                f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}); {note}; sdpa against the plain version: max "
+                f"abs err {row['sdpa_max_abs_err']:.3g}, "
+                f"{row['sdpa_beyond_bar']} elements beyond the bar")
         else:
             log(f"[kernels] flash_attention {shape} {dtype} causal="
-                f"{causal} window={window}: {note}")
+                f"{causal} window={window} on the {route}: {note}")
         rows.append(row)
         del q, k, v
         torch.cuda.empty_cache()
@@ -950,8 +1004,11 @@ def phase_profile(state, stlf, lm, rwkv_lm, report):
         for i in range(10):
             model.decode_step(params, cache, {"token": toks[:, i:i + 1],
                                               "pos": pos[i]})
+    long_toks = torch.randint(0, model.cfg.vocab_size, (1, 9216), device=dev)
     windows["prefill_4x2048"] = lambda: model.prefill(params,
                                                       {"tokens": toks})
+    windows["prefill_1x9216"] = lambda: model.prefill(
+        params, {"tokens": long_toks})
     windows["decode_10_steps_b4"] = decode_10
     r_model, r_params = rwkv_lm
     r_toks = toks % r_model.cfg.vocab_size
@@ -977,16 +1034,16 @@ def phase_profile(state, stlf, lm, rwkv_lm, report):
         # kernel entries only: an operator's entry repeats its kernels' time
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev = [(e.self_device_time_total, e.key) for e in kern]
+        dev = [(e.self_device_time_total, e.key, e.count) for e in kern]
         launched = sum(e.count for e in kern)
-        busy = sum(t for t, _ in dev)
+        busy = sum(t for t, _, _ in dev)
         top = sorted(dev, reverse=True)[:5]
         out[name] = dict(wall_us=wall_us, device_us=busy,
                          busy_share=busy / wall_us, kernels=launched,
-                         top=[[k, t] for t, k in top])
+                         top=[[k, t, n] for t, k, n in top])
         log(f"[profile] {name}: wall {wall_us:.0f} us, device busy "
             f"{busy:.0f} us ({busy / wall_us:.1%}), {launched} kernels; top: "
-            + "; ".join(f"{k[:40]} {t:.0f}us" for t, k in top))
+            + "; ".join(f"{k[:40]} {t:.0f}us/{n}" for t, k, n in top))
     report["profile"] = out
 
 
@@ -1125,9 +1182,16 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {report['build_s']:.2f} s for {sorted(ptxas)}")
     for name, text in ptxas.items():
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = demangle(_build, line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name} {fn}: {line.strip()}")
+    hgmma = check_flash_sass(_build)
+    report["flash_hgmma"] = hgmma
+    log(f"[build] flash_attention bf16 kernel SASS: HGMMA instructions "
+        f"{hgmma}")
 
     # 3. kernels against their plain versions
     rows = phase_kernels(ac, dg, report)

@@ -11,9 +11,13 @@ Unlike the JAX wrapper it takes K/V with their KV heads un-repeated
 same call.  The kernel reads the (B, S, H, D) tensors through their
 strides and masks ragged edges itself, so the wrapper pads and
 transposes nothing.  On the H100 it is bound by its 4 D flops per live
-(query, key) pair; this first kernel does them as fp32 FMAs from shared
-memory with the online softmax in registers and skips key tiles wholly
-outside a query tile's causal or window range (see the source's header).
+(query, key) pair.  bf16 inputs (the serve path) take the tensor-core
+kernel: Q and K/V tiles staged by ``cp.async``, both products on
+``mma.sync``, P split into two bf16 halves so that the output stays
+within one bf16 ulp of the plain version.  fp32 inputs take the SIMT
+kernel (fp32 FMAs from shared memory).  Both keep the online softmax in
+registers and skip key tiles wholly outside a query tile's causal or
+window range (see the source's header).
 """
 from __future__ import annotations
 
@@ -65,6 +69,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def check_staging(name: str, t: torch.Tensor) -> None:
+    """The bf16 kernel copies 16-byte rows with ``cp.async``: ``t``'s data
+    pointer must be 16-byte aligned and its B, S and H strides multiples
+    of 8 elements.  Raises ``ValueError`` otherwise; nothing falls back."""
+    if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        raise ValueError(f"flash_attention: bf16 {name} needs a 16-byte "
+                         f"aligned data pointer and strides in B, S and H "
+                         f"that are multiples of 8 elements, got pointer "
+                         f"{t.data_ptr():#x} and strides {t.stride()}")
+
+
 def _check(q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
@@ -82,7 +97,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Sq, H, D); k, v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype,
     query i at absolute position i + Sk - Sq.  CPU tensors take the plain
     version; CUDA tensors (float32 or bfloat16, one dtype, unit stride in
-    D, D in ``HEAD_DIMS``, on one device) launch the kernel."""
+    D, D in ``HEAD_DIMS``, on one device; bf16 also as ``check_staging``
+    says) launch the kernel."""
     _check(q, k, v, window)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -96,6 +112,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} needs unit stride "
                              f"in D, got strides {t.stride()}")
+        if t.dtype == torch.bfloat16:
+            check_staging(name, t)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:

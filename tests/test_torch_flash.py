@@ -102,3 +102,89 @@ def test_flash_wrapper_rejects_bad_inputs():
         fa.flash_attention(q, k, v, window=0)
     with pytest.raises(ValueError, match="shape|must be"):
         fa.flash_attention(q, k[:, :, :, :8], v)
+
+
+# The bf16 kernel's arithmetic (csrc/flash_attention.cu): fp32 scores
+# from bf16 q and k (exact products), the scale on the fp32 score, p in
+# fp32, l summed from the unrounded p, and PV on the tensor cores with p
+# in bf16: split into hi = bf16(p) and lo = bf16(p - hi), two products
+# against the same bf16 v, one rounding of the output to bf16.
+FLASH_BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -7)      # one bf16 ulp
+NUMERICS_GRID = [(256, 2, 1, 16, None), (256, 2, 1, 64, None),
+                 (256, 2, 1, 128, None), (384, 4, 2, 64, 100)]
+
+
+def _kernel_emulation(q, k, v, window, split):
+    """(B, Sq, H, D) bf16 out of bf16 q and GQA k, v, as the tensor-core
+    kernel computes it (``split``) or with one bf16 rounding of p."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    rep = h // k.shape[2]
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / d ** 0.5)
+    qi = torch.arange(sq)[:, None] + (sk - sq)
+    kj = torch.arange(sk)[None, :]
+    live = kj <= qi
+    if window is not None:
+        live &= kj > qi - window
+    s = s.masked_fill(~live, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    hi = p.bfloat16().float()
+    if split:
+        lo = (p - hi).bfloat16().float()
+        acc = (torch.einsum("bhqk,bkhd->bhqd", hi, vf)
+               + torch.einsum("bhqk,bkhd->bhqd", lo, vf))
+    else:
+        acc = torch.einsum("bhqk,bkhd->bhqd", hi, vf)
+    return (acc / l).transpose(1, 2).bfloat16()
+
+
+def _beyond(out, ref, tol):
+    ref = ref.float()
+    return int(((out.float() - ref).abs()
+                > tol["atol"] + tol["rtol"] * ref.abs()).sum())
+
+
+def _bf16_qkv(sq, h, kv, d):
+    q, k, v = _qkv(1, sq, sq, h, d, kv=kv)
+    return [torch.as_tensor(a).bfloat16() for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("sq,h,kv,d,window", NUMERICS_GRID)
+def test_flash_split_p_meets_the_bf16_bar(sq, h, kv, d, window):
+    """P split into bf16 hi and lo keeps the kernel within one bf16 ulp
+    of the plain version everywhere: the bar the card tests hold it to."""
+    q, k, v = _bf16_qkv(sq, h, kv, d)
+    plain = fa.flash_attention_plain(q, k, v, window=window)
+    out = _kernel_emulation(q, k, v, window, split=True)
+    assert _beyond(out, plain, FLASH_BF16_TOL) == 0
+    torch.testing.assert_close(out.float(), plain.float(), **FLASH_BF16_TOL)
+
+
+@pytest.mark.parametrize("sq,h,kv,d,window", NUMERICS_GRID)
+def test_flash_single_bf16_p_breaks_the_bf16_bar(sq, h, kv, d, window):
+    """One bf16 rounding of P (what a plain bf16 PV product does) moves
+    elements beyond the same bar: the bar sees P's rounding, so the
+    split is what keeps the kernel inside it."""
+    q, k, v = _bf16_qkv(sq, h, kv, d)
+    plain = fa.flash_attention_plain(q, k, v, window=window)
+    out = _kernel_emulation(q, k, v, window, split=False)
+    assert _beyond(out, plain, FLASH_BF16_TOL) > 0
+
+
+def test_flash_staging_check():
+    """The bf16 kernel's TMA staging needs 16-byte aligned pointers and
+    B, S, H strides that are multiples of 8 elements; anything else
+    raises (the wrapper calls this for every bf16 CUDA input)."""
+    t = torch.zeros(2, 16, 4, 32, dtype=torch.bfloat16)
+    fa.check_staging("q", t)
+    fa.check_staging("q", t[:, 3:, 1:3])               # aligned view
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.check_staging("k", torch.zeros(2, 16, 4, 36,
+                                          dtype=torch.bfloat16)[..., :32])
+    with pytest.raises(ValueError, match="aligned"):
+        fa.check_staging("v", torch.zeros(2 * 16 * 4 * 32 + 1,
+                                          dtype=torch.bfloat16)[1:]
+                         .view(2, 16, 4, 32))

@@ -86,7 +86,13 @@ def test_transfer_goes_through_the_kernel(cuda):
 
 # tests/test_kernels.py's flash grid: (b, sq, sk, h, kv, d, causal, window),
 # with a GQA case, a fully masked start (sq > sk), fewer queries than a
-# tile behind a longer history, and the serve path's long-prompt window
+# tile behind a longer history, and the serve path's long-prompt window;
+# then the edges of the bf16 tensor-core kernel's 64 x 64 tiles: D = 16
+# (one k-step) and 128, fewer queries than a tile, sq > sk with fully
+# masked rows, window edges inside a key tile (24, 40, 100) and on one
+# (64: the last row of a query tile starts its window on its own
+# diagonal tile; 65: the first row starts on the tile before), and GQA
+# ratios 1, 4 and 8
 FLASH_GRID = [
     (2, 64, 64, 2, 2, 32, True, None),
     (1, 100, 100, 3, 3, 64, True, None),
@@ -97,6 +103,13 @@ FLASH_GRID = [
     (1, 48, 32, 2, 2, 16, True, None),
     (2, 5, 77, 4, 2, 32, True, 40),
     (1, 9216, 9216, 4, 1, 64, True, 8192),
+    (2, 200, 200, 8, 1, 16, True, None),
+    (1, 17, 17, 4, 4, 128, True, None),
+    (1, 300, 190, 4, 1, 64, True, None),
+    (1, 256, 256, 4, 1, 64, True, 64),
+    (1, 256, 256, 8, 1, 128, True, 65),
+    (2, 320, 320, 4, 4, 32, True, 100),
+    (1, 77, 200, 8, 2, 128, False, None),
 ]
 
 
@@ -123,10 +136,62 @@ def test_flash_attention_kernel_on_card(cuda, b, sq, sk, h, kv, d, causal,
     plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), plain.float(), **tol)
     assert bool(torch.isfinite(out).all())
+    if causal and sq > sk:           # queries before every key give 0
+        assert not bool(out[:, :sq - sk].any())
     with pytest.raises(ValueError):
         fa.flash_attention(q, k.cpu(), v)              # no fallback
     with pytest.raises(ValueError):
         fa.flash_attention(q.half(), k.half(), v.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32,
+                                        dict(atol=3e-5, rtol=1e-4)),
+                                       (torch.bfloat16,
+                                        dict(atol=1e-5, rtol=2.0 ** -7))])
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_attention_kernel_on_fused_qkv_views(cuda, dtype, tol,
+                                                   window):
+    """q, k, v as slices of one (B, S, H + 2 KV, D) projection: aligned,
+    not contiguous (S stride (H + 2 KV) D), read in place."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    b, s, h, kv, d = 2, 150, 8, 2, 64
+    qkv = torch.as_tensor(RNG.normal(size=(b, s, h + 2 * kv, d)),
+                          dtype=dtype, device=cuda)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    out = fa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    plain = fa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), window=window)
+    torch.testing.assert_close(out.float(), plain.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_misaligned_bf16(cuda):
+    """cp.async stages 16-byte rows: a bf16 stride that is not a multiple
+    of 8 elements, or a pointer off 16 bytes, raises; nothing falls
+    back.  fp32 (the SIMT kernel) takes both."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    b, s, h, d = 1, 64, 2, 32
+    wide = torch.as_tensor(RNG.normal(size=(b, s, h, d + 4)),
+                           dtype=torch.bfloat16, device=cuda)
+    q = wide[..., :d]                                   # H stride d + 4
+    k = v = torch.as_tensor(RNG.normal(size=(b, s, h, d)),
+                            dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.flash_attention(q, k, v)
+    flat = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    shifted = flat[1:].view(b, s, h, d)                 # 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q.contiguous(), shifted, v)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q.float(), k.float(), v.float())
+    assert fa.flash_attention.launches == before + 1
+    torch.testing.assert_close(
+        out, fa.flash_attention_plain(q.float(), k.float(), v.float()),
+        atol=3e-5, rtol=1e-4)
 
 
 @pytest.mark.cuda
