@@ -9,11 +9,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
 2. build   — compiles every CUDA kernel of the port from its source in
              this checkout (``build/repro_torch/``), all at once, and
              checks with ``cuobjdump -sass`` that the bf16 flash kernel
-             runs on the tensor cores (HGMMA instructions).
+             and the alpha_combine kernels run on the tensor cores
+             (HGMMA; HMMA/HGMMA ...TF32).
 3. kernels — holds each kernel against its plain PyTorch version on the
-             card (``alpha_combine`` to rtol/atol 1e-5, ``disagreement``
-             exactly) and times kernel, plain version and one PyTorch
-             library call with CUDA events.
+             card (``alpha_combine`` to rtol/atol 1e-5 at six shapes, T
+             past 256 and S no multiple of 8 among them;
+             ``disagreement_counts`` and ``disagreement()`` exactly,
+             fractional weights bit-equal on two launches and within
+             rtol 1e-6, with both versions' error against a float64 sum;
+             the host's share of a (10, 2500) call split into its parts)
+             and times kernel, plain version and one PyTorch library
+             call with CUDA events.
              ``flash_attention`` is held against its plain version at
              the serve path's two prefill shapes in bf16 (within one
              bf16 ulp: rtol 2^-7, atol 1e-5; the tensor-core kernel) and
@@ -60,7 +66,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
              pieces, and the LM's and rwkv6's prefill and greedy tokens).
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler window over
-each phase (the device's busy share, top kernels) after phase 6.
+each phase (the device's busy share, top kernels; the ST-LF kernels'
+launches and device time a call) after phase 6.
 
 The last three lines of standard output are the ``nvidia-smi`` name and
 power limit, one JSON object describing every kernel, and the device
@@ -82,10 +89,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): memory rate, fp32 without tensor
-# cores, bf16 on the tensor cores (dense)
+# cores, bf16 and TF32 on the tensor cores (dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
+PEAK_TF32_PER_S = 495e12
 INNER_STEPS = 1500          # solve_stlf's default inner budget (run_stlf)
 
 KERNEL_META = {
@@ -191,6 +199,30 @@ def check_flash_sass(_build):
     return counts
 
 
+def check_alpha_sass(_build):
+    """The alpha_combine kernels compiled to TF32 tensor-core MMAs:
+    ``HMMA...TF32`` (mma.sync) in ``alpha_combine_tc_kernel``,
+    ``HGMMA...TF32`` (wgmma) in ``alpha_combine_wgmma_kernel``; a kernel
+    compiled to FMAs fails.  Returns {kernel: TF32 MMA count}."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build._target("alpha_combine"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = demangle(_build, fn.split("\n", 1)[0].strip())
+        if name.startswith("alpha_combine_tc_kernel"):
+            counts[name] = len(re.findall(r"\bHMMA\.\S*TF32", fn))
+        elif name.startswith("alpha_combine_wgmma_kernel"):
+            counts[name] = len(re.findall(r"\bHGMMA\.\S*TF32", fn))
+    if sorted(counts) != ["alpha_combine_tc_kernel",
+                          "alpha_combine_wgmma_kernel"] \
+            or not all(counts.values()):
+        raise AssertionError(f"alpha_combine: the kernels' SASS lacks TF32 "
+                             f"MMA instructions: {counts}")
+    return counts
+
+
 def zero_counts(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -206,7 +238,10 @@ def phase_kernels(ac, dg, report):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {"alpha_combine": [], "disagreement": []}
-    for s, t, p in [(10, 10, 48158), (256, 256, 48158), (7, 5, 1001)]:
+    # the main path's shape first, the simulator's scale, ragged P, an S
+    # that is no multiple of 8, and T past one block's 256 targets
+    for s, t, p in [(10, 10, 48158), (256, 256, 48158), (7, 5, 1001),
+                    (13, 9, 48158), (300, 300, 1001), (64, 300, 48158)]:
         theta = torch.randn(s, p, device=dev, generator=gen)
         alpha = torch.rand(s, t, device=dev, generator=gen)
         alpha /= alpha.sum(0, keepdim=True)
@@ -218,19 +253,26 @@ def phase_kernels(ac, dg, report):
             raise AssertionError(f"alpha_combine {(s, t, p)}: max abs err "
                                  f"{err} beyond rtol/atol 1e-5")
         iters = 200 if s * p < 1e7 else 20
-        b_ms, b_by = bound(4 * (s * p + s * t + t * p), 2 * s * t * p)
-        rows["alpha_combine"].append(dict(
+        nbytes = 4 * (s * p + s * t + t * p)
+        # the function's work, 2 S T P, at the tensor cores' TF32 peak;
+        # beside it the time of the 3xTF32 split's three products at that
+        # peak (the kernel's own floor) and the fp32-FMA bound
+        b_ms, b_by = bound(nbytes, 2 * s * t * p, PEAK_TF32_PER_S)
+        fma_ms, _ = bound(nbytes, 2 * s * t * p)
+        row = dict(
             shape=[s, t, p], max_abs_err=err,
             ms=cuda_ms(lambda: ac.alpha_combine(theta, alpha), iters),
             plain_ms=cuda_ms(lambda: ac.alpha_combine_plain(
                 theta, alpha), iters),
             library_ms=cuda_ms(lambda: torch.matmul(alpha.T, theta),
                                iters),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by, fp32_fma_bound_ms=fma_ms,
+            split_products_ms=3 * 2 * s * t * p / PEAK_TF32_PER_S * 1e3)
+        rows["alpha_combine"].append(row)
     # all rows valid at the timed shapes, as on the main path (there
-    # torch.cdist with p=0 counts the same mismatches); a mask at the last
+    # torch.cdist with p=0 counts the same mismatches); masks after them
     for n, m, masked in [(10, 2500, False), (256, 64000, False),
-                         (13, 777, True)]:
+                         (13, 777, True), (130, 777, True)]:
         preds = torch.randint(0, 10, (n, m), device=dev, generator=gen,
                               dtype=torch.int32)
         valid = (torch.rand(m, device=dev, generator=gen) < 0.8).float() \
@@ -243,27 +285,135 @@ def phase_kernels(ac, dg, report):
             raise AssertionError(f"disagreement {(n, m)}: max abs err "
                                  f"{float((out - plain).abs().max())}, "
                                  f"exact equality required")
+        # the main path's call: disagreement(preds), the normalized matrix
+        # in the kernel's one launch, equal to counts / max(sum(valid), 1)
+        norm = dg.disagreement(preds, valid > 0 if masked else None)
+        if not torch.equal(norm, plain / torch.clamp(valid.sum(), min=1.0)):
+            raise AssertionError(f"disagreement() {(n, m)} is not counts / "
+                                 f"max(sum(valid), 1) bit for bit")
         iters = 200 if n * n * m < 1e8 else 10
         b_ms, b_by = bound(4 * (n * m + m + n * n), 2 * n * n * m)
-        rows["disagreement"].append(dict(
-            shape=[n, m], max_abs_err=0.0,
+        row = dict(
+            shape=[n, m], masked=masked, max_abs_err=0.0,
             ms=cuda_ms(lambda: dg.disagreement_counts(preds, valid),
                        iters),
             plain_ms=cuda_ms(lambda: dg.disagreement_counts_plain(
                 preds, valid), max(1, iters // 10)),
             library_ms=None if masked else cuda_ms(
                 lambda: torch.cdist(fpreds, fpreds, p=0), iters),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by)
+        if not masked:
+            row.update(
+                main_call_ms=cuda_ms(lambda: dg.disagreement(preds), iters),
+                library_normalized_ms=cuda_ms(
+                    lambda: torch.cdist(fpreds, fpreds, p=0) / m, iters))
+        if (n, m) == (10, 2500):
+            row["host"] = host_breakdown(dg, preds, valid, iters)
+        rows["disagreement"].append(row)
+    report["disagreement_fractional"] = check_fractional_weights(dg, gen)
+    # the cluster capacities the wrapper sizes its clusters from, and its
+    # choice at each timed shape
+    caps = {bn: dg._caps(0, bn) for bn in (16, 32)}
+    report["disagreement_clusters"] = dict(
+        capacity=caps, plan={f"{n}x{m}": dg._plan(n, m, 0)
+                             for n, m in [(10, 2500), (256, 64000)]})
+    log(f"[kernels] disagreement clusters the card holds at once, sizes "
+        f"1-8: {caps}; (tile, cluster) chosen: "
+        f"{report['disagreement_clusters']['plan']}")
     for name, rs in rows.items():
         for r in rs:
             lib = "none" if r["library_ms"] is None \
                 else f"{r['library_ms']:.4f} ms"
+            extra = ""
+            if "fp32_fma_bound_ms" in r:
+                extra = (f" (the split's three TF32 products "
+                         f"{r['split_products_ms']:.4f} ms; fp32-FMA bound "
+                         f"{r['fp32_fma_bound_ms']:.4f} ms)")
+            if "main_call_ms" in r:
+                extra = (f"; disagreement(preds) {r['main_call_ms']:.4f} "
+                         f"ms, cdist/M {r['library_normalized_ms']:.4f} ms")
             log(f"[kernels] {name} {r['shape']}: {r['ms']:.4f} ms kernel, "
                 f"{r['plain_ms']:.4f} ms plain, library {lib}, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}, "
                 f"max abs err {r['max_abs_err']:.3g}")
     report["kernel_shapes"] = rows
     return rows
+
+
+def host_breakdown(dg, preds, valid, iters):
+    """Where a small call's time goes: the wrapper against its parts, each
+    timed alone back to back (CUDA events; at this size the host's
+    enqueue rate): ``torch.empty`` of the output, the bare ``ctypes``
+    launch into a preallocated output, and the wrapper's checks and
+    lookups (a call that fails its last check before the launch)."""
+    n, m = preds.shape
+    out = torch.empty((n, n), device=preds.device)
+    fpreds = preds.float()
+    bn, cl = dg._plan(n, m, preds.get_device())
+    launch = dg._entry()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare():
+        launch(preds.data_ptr(), valid.data_ptr(), out.data_ptr(), n, m, bn,
+               cl, 0, stream)
+    parts = dict(
+        wrapper_ms=cuda_ms(lambda: dg.disagreement_counts(preds, valid),
+                           iters),
+        empty_ms=cuda_ms(lambda: torch.empty((n, n), device=preds.device),
+                         iters),
+        bare_launch_ms=cuda_ms(bare, iters),
+        checks_ms=cuda_ms(lambda: dg._ready(preds, valid), iters),
+        cdist_ms=cuda_ms(lambda: torch.cdist(fpreds, fpreds, p=0), iters))
+    log("[kernels] disagreement (10, 2500) host: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in parts.items()))
+    return parts
+
+
+def _counts_f64(preds, valid):
+    """The disagreement counts summed in float64, in row blocks."""
+    n = preds.shape[0]
+    rows = max(1, 2 ** 27 // max(n * preds.shape[1], 1))
+    v = valid.double()
+    return torch.cat([((preds[i:i + rows, None, :] != preds[None, :, :])
+                       .double() * v).sum(-1) for i in range(0, n, rows)])
+
+
+def check_fractional_weights(dg, gen):
+    """Fractional weights: two launches give the same bits (the kernel's
+    sum order is fixed by the shapes), within rtol 1e-6 of the plain
+    version (whose order is torch's); both versions' error against the
+    same sum in float64 is reported."""
+    dev = torch.device("cuda")
+    out = []
+    for n, m in [(256, 64000), (130, 777), (10, 2500)]:
+        preds = torch.randint(0, 10, (n, m), device=dev, generator=gen,
+                              dtype=torch.int32)
+        valid = torch.rand(m, device=dev, generator=gen)
+        a = dg.disagreement_counts(preds, valid)
+        b = dg.disagreement_counts(preds, valid)
+        plain = dg.disagreement_counts_plain(preds, valid)
+        exact = _counts_f64(preds, valid)
+
+        def rel_err(x, ref):
+            return float(((x.double() - ref).abs()
+                          / ref.abs().clamp(min=1e-30)).max())
+        rel = rel_err(a, plain.double())
+        rel_kernel, rel_plain = rel_err(a, exact), rel_err(plain, exact)
+        if not torch.equal(a, b):
+            raise AssertionError(f"disagreement {(n, m)}: two launches on "
+                                 f"fractional weights differ")
+        if not torch.allclose(a, plain, rtol=1e-6, atol=0.0):
+            raise AssertionError(f"disagreement {(n, m)}: fractional "
+                                 f"weights {rel:.3g} from the plain "
+                                 f"version, beyond rtol 1e-6")
+        log(f"[kernels] disagreement {[n, m]} fractional weights: two "
+            f"launches bit-equal, max rel err {rel:.3g} against the plain "
+            f"version; against a float64 sum: kernel {rel_kernel:.3g}, "
+            f"plain {rel_plain:.3g}")
+        out.append(dict(shape=[n, m], bit_equal=True, max_rel_err=rel,
+                        kernel_rel_err_f64=rel_kernel,
+                        plain_rel_err_f64=rel_plain))
+    return out
 
 
 def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -933,6 +1083,12 @@ def phase_main_path(ac, dg, counted, report):
     if not torch.equal(kern, plain):
         raise AssertionError("disagreement on trained predictions differs "
                              "from the plain version")
+    # (a CUDA tensor divided by a Python number is multiplied by its
+    # reciprocal; by a tensor, divided: the kernel divides, as JAX does)
+    m_t = torch.tensor(float(preds.shape[1]), device=preds.device)
+    if not torch.equal(dg.disagreement(preds), plain / m_t):
+        raise AssertionError("disagreement() on trained predictions is not "
+                             "counts / M bit for bit")
     if not np.allclose(hyp, (plain / preds.shape[1]).cpu().numpy()):
         raise AssertionError("pairwise_disagreement is not eq. (4)")
 
@@ -979,22 +1135,32 @@ def phase_profile(state, stlf, lm, rwkv_lm, report):
 
     prob = STLFProblem(state.bounds, state.energy)
     dev = torch.device("cuda")
-    theta = torch.randn(10, 48158, device=dev)
-    alpha = torch.rand(10, 10, device=dev)
-    preds = torch.randint(0, 10, (10, 2500), device=dev, dtype=torch.int32)
-    ones = torch.ones(2500, device=dev)
-    windows = {
-        # device time of each kernel at the main path's shapes, x20
-        "kernels_x20": lambda: [(ac.alpha_combine(theta, alpha),
-                                 dg.disagreement_counts(preds, ones))
-                                for _ in range(20)],
+    windows = {}
+    # launches and device time a call of each ST-LF kernel's wrappers, at
+    # the main path's shapes (x20) and the simulator's scale (x5)
+    for (s, p, n, m), calls in [((10, 48158, 10, 2500), 20),
+                                ((256, 48158, 256, 64000), 5)]:
+        theta = torch.randn(s, p, device=dev)
+        alpha = torch.rand(s, s, device=dev)
+        preds = torch.randint(0, 10, (n, m), device=dev, dtype=torch.int32)
+        ones = torch.ones(m, device=dev)
+        windows[f"alpha_combine_{s}x{s}x{p}_x{calls}"] = \
+            lambda th=theta, al=alpha, c=calls: [
+                ac.alpha_combine(th, al) for _ in range(c)]
+        windows[f"disagreement_counts_{n}x{m}_x{calls}"] = \
+            lambda pr=preds, v=ones, c=calls: [
+                dg.disagreement_counts(pr, v) for _ in range(c)]
+        windows[f"disagreement_{n}x{m}_x{calls}"] = \
+            lambda pr=preds, c=calls: [dg.disagreement(pr)
+                                       for _ in range(c)]
+    windows.update({
         "train_20_steps": lambda: train_local(state.params, state.clients, 1,
                                               iters=20),
         "solve_1x128_steps": lambda: solve_stlf(
             prob, max_outer=1, inner_steps=128, polish=False),
         "transfer_eval": lambda: evaluate_assignment(
             state, "ST-LF", stlf.psi, stlf.alpha),
-    }
+    })
     model, params = lm
     toks = torch.randint(0, model.cfg.vocab_size, (4, 2048), device=dev)
     cache = model.init_cache(4, 96, device=dev)
@@ -1192,6 +1358,9 @@ def main() -> int:
     report["flash_hgmma"] = hgmma
     log(f"[build] flash_attention bf16 kernel SASS: HGMMA instructions "
         f"{hgmma}")
+    tf32 = check_alpha_sass(_build)
+    report["alpha_combine_tf32_mma"] = tf32
+    log(f"[build] alpha_combine kernel SASS: TF32 MMA instructions {tf32}")
 
     # 3. kernels against their plain versions
     rows = phase_kernels(ac, dg, report)

@@ -1,19 +1,24 @@
 """Weighted source->target parameter mixing, ``out = alpha^T @ theta``.
 
-``alpha_combine`` launches the CUDA kernel in ``csrc/alpha_combine.cu``
+``alpha_combine`` launches the CUDA kernels in ``csrc/alpha_combine.cu``
 for CUDA tensors and computes ``alpha_combine_plain`` for CPU tensors;
 there is no other fallback.  It replaces the Pallas TPU kernel
 ``repro/kernels/alpha_combine/kernel.py`` (``_combine_kernel`` /
-``alpha_combine_flat``).  On the H100 the transfer's shape (S = T = 10,
-P = 48,158) is bound by its 3.85 MB of bytes and, in practice, by the
-launch; at S = T = 256 it is bound by its fp32 FMAs.  The kernel streams
-theta coalesced along P, stages alpha slabs in shared memory and keeps
-the sums in registers (see the source's header).
+``alpha_combine_flat``).  The product runs on the tensor cores in TF32
+with the 3xTF32 split (fp32 SGEMM's accuracy): up to 16 targets (the
+transfer's S = T = 10, P = 48,158, bound by its 3.85 MB and the host) one
+``mma.sync`` kernel; past them alpha is split once into a scratch and a
+``wgmma`` kernel reads theta from device memory once for up to 256
+targets (see the source's header).  The typed ``ctypes`` entry, and for
+each (S, T) how many kernels a call launches and how much scratch it
+needs (asked of the source, which lays the scratch out), are looked up
+once.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -22,7 +27,7 @@ from repro_torch.nn.param import flatten_to_vector, unflatten_from_vector
 
 _SIGNATURE = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-              ctypes.c_void_p)
+              ctypes.c_void_p, ctypes.c_void_p)
 
 
 def alpha_combine_plain(theta: torch.Tensor,
@@ -31,32 +36,65 @@ def alpha_combine_plain(theta: torch.Tensor,
     return torch.einsum("sp,st->tp", theta.float(), alpha.float())
 
 
+@functools.lru_cache(maxsize=None)
+def _entry():
+    return _build.entry("alpha_combine", "alpha_combine_f32", _SIGNATURE)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(s: int, t: int) -> Tuple[int, int]:
+    """(kernels a call launches, bytes of scratch it needs) for S sources
+    and T targets: one kernel and none up to 16 targets; past them two
+    (alpha's split into the scratch, then the product)."""
+    scratch = ctypes.c_longlong()
+    launches = _build.entry("alpha_combine", "alpha_combine_plan",
+                            (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))(
+        s, t, ctypes.byref(scratch))
+    return launches, scratch.value
+
+
+def _ready(theta: torch.Tensor, alpha: torch.Tensor) -> bool:
+    """The inputs are what the kernel takes as they are: contiguous
+    float32 (S, P) theta and (S, T) alpha on one CUDA device."""
+    return (theta.is_cuda and alpha.is_cuda
+            and theta.dtype is torch.float32 and alpha.dtype is torch.float32
+            and theta.dim() == 2 and alpha.dim() == 2
+            and theta.shape[0] == alpha.shape[0]
+            and theta.is_contiguous() and alpha.is_contiguous()
+            and theta.get_device() == alpha.get_device())
+
+
 def alpha_combine(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """theta (S, P), alpha (S, T) -> (T, P) float32.  CPU tensors take
     the plain version; CUDA tensors must be contiguous float32 on one
-    device, and launch the kernel."""
-    if theta.dim() != 2 or alpha.dim() != 2 \
-            or theta.shape[0] != alpha.shape[0]:
-        raise ValueError(f"alpha_combine: theta {tuple(theta.shape)} and "
-                         f"alpha {tuple(alpha.shape)} must be (S, P), (S, T)")
-    if theta.device.type == "cpu" and alpha.device.type == "cpu":
-        return alpha_combine_plain(theta, alpha)
-    for name, t in (("theta", theta), ("alpha", alpha)):
-        if t.device.type != "cuda" or t.device != theta.device:
-            raise ValueError(f"alpha_combine: {name} is on {t.device}; "
-                             f"both inputs must be on one CUDA device")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"alpha_combine: {name} must be contiguous "
-                             f"float32, got {t.dtype}")
+    device, and launch the kernels (``launches`` counts each kernel)."""
+    if not _ready(theta, alpha):
+        if theta.dim() != 2 or alpha.dim() != 2 \
+                or theta.shape[0] != alpha.shape[0]:
+            raise ValueError(f"alpha_combine: theta {tuple(theta.shape)} "
+                             f"and alpha {tuple(alpha.shape)} must be "
+                             f"(S, P), (S, T)")
+        if not theta.is_cuda and not alpha.is_cuda:
+            return alpha_combine_plain(theta, alpha)
+        for name, t in (("theta", theta), ("alpha", alpha)):
+            if not t.is_cuda or t.device != theta.device:
+                raise ValueError(f"alpha_combine: {name} is on {t.device}; "
+                                 f"both inputs must be on one CUDA device")
+            if t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"alpha_combine: {name} must be contiguous "
+                                 f"float32, got {t.dtype}")
     (s, p), t_ = theta.shape, alpha.shape[1]
-    out = torch.empty((t_, p), device=theta.device, dtype=torch.float32)
+    out = theta.new_empty((t_, p))
     if s == 0 or t_ == 0 or p == 0:
         return out.zero_()
-    launch = _build.entry("alpha_combine", "alpha_combine_f32", _SIGNATURE)
-    err = launch(theta.data_ptr(), alpha.data_ptr(), out.data_ptr(), s, t_,
-                 p, torch.cuda.current_stream(theta.device).cuda_stream)
-    _build.check("alpha_combine", err)
-    alpha_combine.launches += 1
+    launches, nbytes = _plan(s, t_)
+    scratch = theta.new_empty(nbytes, dtype=torch.uint8) if nbytes else None
+    err = _entry()(theta.data_ptr(), alpha.data_ptr(), out.data_ptr(), s,
+                   t_, p, None if scratch is None else scratch.data_ptr(),
+                   torch._C._cuda_getCurrentRawStream(theta.get_device()))
+    if err:
+        _build.check("alpha_combine", err)
+    alpha_combine.launches += launches
     return out
 
 

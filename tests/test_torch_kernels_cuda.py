@@ -32,9 +32,12 @@ def cuda():
     return torch.device("cuda")
 
 
+# the transfer's shape, ragged edges, the simulator's scale (256 targets:
+# one block's full width), T past one block (300), S no multiple of 8
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,t,p", [(10, 10, 48158), (7, 5, 1001),
-                                   (70, 40, 3001)])
+                                   (70, 40, 3001), (256, 256, 48158),
+                                   (300, 300, 1001), (13, 9, 48158)])
 def test_alpha_combine_kernel_on_card(cuda, s, t, p):
     theta, alpha = _ac_inputs(s, t, p)
     th, al = torch.as_tensor(theta, device=cuda), \
@@ -42,7 +45,8 @@ def test_alpha_combine_kernel_on_card(cuda, s, t, p):
     before = ac.alpha_combine.launches
     out = ac.alpha_combine(th, al)
     torch.cuda.synchronize()
-    assert ac.alpha_combine.launches == before + 1
+    # one kernel up to 16 targets, then two: alpha's split and the product
+    assert ac.alpha_combine.launches == before + (1 if t <= 16 else 2)
     torch.testing.assert_close(out, ac.alpha_combine_plain(th, al),
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
@@ -51,8 +55,42 @@ def test_alpha_combine_kernel_on_card(cuda, s, t, p):
         ac.alpha_combine(th.double(), al.double())
 
 
+def _profiled_kernels(fn, calls, windows=3):
+    """The device kernels the profiler records over ``calls`` calls of
+    ``fn``, in each of ``windows`` windows.  The profiler now and then
+    loses a kernel's record (a window counts one short), never adds one:
+    a caller holds the largest count to the expected one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen.append([e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA])
+    return seen
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", [(10, 2500), (13, 777), (40, 130)])
+@pytest.mark.parametrize("s,t,kernels", [(10, 10, 1), (64, 300, 2)])
+def test_alpha_combine_counts_each_launch(cuda, s, t, kernels):
+    # one kernel up to 16 targets; past them the split and the product:
+    # the wrapper's count and the profiler's agree
+    theta, alpha = _ac_inputs(s, t, 1001)
+    th, al = torch.as_tensor(theta, device=cuda), \
+        torch.as_tensor(alpha, device=cuda)
+    before = ac.alpha_combine.launches
+    seen = _profiled_kernels(lambda: ac.alpha_combine(th, al), 3)
+    assert ac.alpha_combine.launches == before + 10 * kernels
+    assert max(len(names) for names in seen) == 3 * kernels, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(10, 2500), (13, 777), (40, 130),
+                                 (256, 64000), (130, 777)])
 def test_disagreement_kernel_on_card(cuda, n, m):
     preds = torch.as_tensor(_preds(n, m), device=cuda)
     valid = torch.as_tensor(RNG.random(m) < 0.7, device=cuda).float()
@@ -63,6 +101,48 @@ def test_disagreement_kernel_on_card(cuda, n, m):
     assert torch.equal(out, dg.disagreement_counts_plain(preds, valid))
     with pytest.raises(ValueError):
         dg.disagreement_counts(preds.long(), valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(10, 2500), (130, 777), (256, 64000)])
+def test_disagreement_fractional_weights_are_deterministic(cuda, n, m):
+    # the kernel's sum order is fixed by the shapes: the same bits on
+    # every launch; torch sums in its own order, so close, not equal
+    preds = torch.as_tensor(_preds(n, m), device=cuda)
+    valid = torch.as_tensor(RNG.random(m), dtype=torch.float32,
+                            device=cuda)
+    a = dg.disagreement_counts(preds, valid)
+    b = dg.disagreement_counts(preds, valid)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(
+        a, dg.disagreement_counts_plain(preds, valid), rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,masked", [(10, 2500, False),
+                                        (40, 3000, True),
+                                        (256, 64000, False)])
+def test_disagreement_normalizes_in_its_one_launch(cuda, n, m, masked):
+    preds = torch.as_tensor(_preds(n, m), device=cuda)
+    mask = torch.as_tensor(RNG.random(m) < 0.7, device=cuda) \
+        if masked else None
+    valid = torch.ones(m, device=cuda) if mask is None else mask.float()
+    counts = dg.disagreement_counts_plain(preds, valid)
+    before = dg.disagreement_counts.launches
+    out = dg.disagreement(preds, mask)
+    torch.cuda.synchronize()
+    assert dg.disagreement_counts.launches == before + 1
+    assert torch.equal(out, counts / torch.clamp(valid.sum(), min=1.0))
+
+
+@pytest.mark.cuda
+def test_disagreement_is_one_kernel_a_call(cuda):
+    # the profiler sees one device kernel per call (no scratch pass, no
+    # division or mask launches) for the main path's call
+    preds = torch.as_tensor(_preds(10, 2500), device=cuda)
+    seen = _profiled_kernels(lambda: dg.disagreement(preds), 5)
+    assert max(len(names) for names in seen) == 5, seen
+    assert all("disagreement_kernel" in n for names in seen for n in names)
 
 
 @pytest.mark.cuda
