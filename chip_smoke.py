@@ -8,9 +8,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
 1. device  — requires CUDA; prints the card's name and power limit.
 2. build   — compiles every CUDA kernel of the port from its source in
              this checkout (``build/repro_torch/``), all at once, and
-             checks with ``cuobjdump -sass`` that the bf16 flash kernel
-             and the alpha_combine kernels run on the tensor cores
-             (HGMMA; HMMA/HGMMA ...TF32).
+             checks with ``cuobjdump -sass`` that the bf16 flash kernel,
+             the alpha_combine kernels and the two ssm_scan kernels that
+             compute products run on the tensor cores (HGMMA; HMMA/HGMMA
+             ...TF32).
 3. kernels — holds each kernel against its plain PyTorch version on the
              card (``alpha_combine`` to rtol/atol 1e-5 at six shapes, T
              past 256 and S no multiple of 8 among them;
@@ -31,11 +32,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
              check sees a kernel that drops it).
              ``ssm_scan`` is held against its plain version at the rwkv
              serve path's two prefill shapes and a ragged L = 300, both
-             variants, two decay regimes (rwkv6's init and -|N(0, 1)|),
-             bf16 r/k/v with fp32 log_w and all fp32 (y in bf16 within
-             one ulp, in fp32 within 1e-5 / 1e-4, the state within
-             1e-5 / 1e-4), timed at the serve shapes, and against the
+             variants, three decay regimes (rwkv6's init, -|N(0, 1)| and
+             a strong -8 +- 0.5 that takes the diagonal blocks' per-pair
+             branch), bf16 r/k/v with fp32 log_w and all fp32 (y in bf16
+             within one ulp, in fp32 within 1e-5 / 1e-4, the state within
+             1e-5 / 1e-4), and to the same bars against the plain version
+             with its products summed in float64 (its fp32 sums alone lie
+             up to ~0.8 of the fp32 bar from those); timed at the serve
+             shapes with each of its three kernels' device time (the
+             profiler must see each exactly once a call), and against the
              fp32 token-by-token recurrence at (1, 512).
+3b. guard  — each kernel wrapper raises for a CUDA input that requires
+             grad while grad is enabled (no kernel has a backward pass),
+             and computes under ``torch.no_grad()``.
 4. main path — the ST-LF paper pipeline at its full-size setting (10
              devices x 250 samples, 300 local SGD steps, Algorithm 1 with
              tau=4, T=25, the default solver), through the port's entry
@@ -54,8 +63,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
              version on layer 0's own q, k, v of both prompts.
 5b. serve-rwkv — rwkv6-1.6b at full width and depth (24 layers, seeded
              weights drawn on the card): prefill of (4, 2048) and
-             (1, 16384) prompts, counted: ``ssm_scan`` must have run
-             exactly 48 times, and 24 more at each later prefill; then
+             (1, 16384) prompts, counted: ``ssm_scan``'s kernels must
+             have run exactly 3 x 48 times (three a call, a call a layer),
+             and 3 x 24 more at each later prefill; then
              ``serve.generate`` of 32 greedy tokens after a (4, 64)
              prompt, and JAX's serving invariant at (4, 64) and (2, 300);
              the kernel against its plain version on layer 0's own
@@ -130,10 +140,19 @@ RWKV_ARCH = "rwkv6-1.6b"
 RWKV_PREFILLS = [(4, 2048), (1, 16384)]
 # ssm_scan against its plain version: y in bf16 within one bf16 ulp (both
 # sum in fp32 and round once), y in fp32 within summation order, the
-# final state (fp32) likewise
+# final state (fp32) likewise; and to the same bars against the plain
+# version with its products summed in float64 from the same fp32 factors
+# (its fp32 sums, in cuBLAS's order, are themselves up to ~0.8 of the
+# fp32 bar from those at rwkv6's scale)
 SSM_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7),
            torch.float32: dict(atol=1e-5, rtol=1e-4)}
 SSM_STATE_TOL = dict(atol=1e-5, rtol=1e-4)
+SSM_REGIMES = ("init", "abs", "strong")
+# the kernels one ssm_scan call launches, in order, and those of them
+# that compute products on the tensor cores
+SSM_KERNELS = ("ssm_chunk_state_kernel", "ssm_state_scan_kernel",
+               "ssm_chunk_output_kernel")
+SSM_MMA_KERNELS = ("ssm_chunk_state_kernel", "ssm_chunk_output_kernel")
 # the kernel against JAX's fp32 token-by-token recurrence: the decays
 # are rounded differently (exp of a cumsum against a product of exps)
 RECUR_TOL = dict(atol=1e-3, rtol=1e-4)
@@ -174,6 +193,7 @@ def demangle(_build, symbol: str) -> str:
         [str(Path(_build._nvcc()).parent / "cu++filt"), symbol],
         capture_output=True, text=True, timeout=60, check=True).stdout
     text = text.strip().replace("(anonymous namespace)::", "")
+    text = text.replace("(bool)1", "true").replace("(bool)0", "false")
     return text.replace("(int)", "").split("(")[0].split("::")[-1]
 
 
@@ -220,6 +240,33 @@ def check_alpha_sass(_build):
             or not all(counts.values()):
         raise AssertionError(f"alpha_combine: the kernels' SASS lacks TF32 "
                              f"MMA instructions: {counts}")
+    return counts
+
+
+def check_ssm_sass(_build):
+    """The ssm_scan kernels that compute products compiled to TF32
+    tensor-core MMAs (``HMMA...TF32``, mma.sync), every instance of each;
+    a kernel compiled to FMAs fails.  Returns {instance: TF32 MMA
+    count}."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build._target("ssm_scan"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        mangled = fn.split("\n", 1)[0].strip()
+        for kernel in SSM_MMA_KERNELS:
+            inst = re.search(kernel + r"I((?:Lb[01]E)+)E", mangled)
+            if inst:  # the template arguments: which inputs are bf16
+                args = ", ".join("true" if a == "1" else "false" for a in
+                                 re.findall(r"Lb([01])E", inst.group(1)))
+                counts[f"{kernel}<{args}>"] = len(
+                    re.findall(r"\bHMMA\.\S*TF32", fn))
+    # the state kernel for each dtype of k and v, the output kernel for
+    # each of q, k and v
+    if len(counts) != 4 + 8 or not all(counts.values()):
+        raise AssertionError(f"ssm_scan: the kernels' SASS lacks TF32 MMA "
+                             f"instructions: {counts}")
     return counts
 
 
@@ -727,77 +774,147 @@ def ssm_flops(b, l, h, dk, dv, chunk, variant):
     return total * b * h
 
 
+def ssm_kernel_macs(b, l, h, dk, dv, chunk, v_bf16):
+    """TF32 multiply-adds the kernels issue for one call (whole chunks):
+    the readout and the state update in 3xTF32 (2 products for the update
+    when v is bf16), the 16 x 16 score blocks on and below the diagonal
+    and att . v with every product exact (6 products; 3 for att . v when
+    v is bf16)."""
+    blocks = (chunk // 16) * (chunk // 16 + 1) // 2
+    per_chunk = (3 * chunk * dk * dv + (2 if v_bf16 else 3) * chunk * dk * dv
+                 + blocks * 256 * (6 * dk + (3 if v_bf16 else 6) * dv))
+    return per_chunk * b * h * -(-l // chunk)
+
+
 def ssm_inputs(b, l, h, d, regime, dtype, gen):
-    """q, k, v in ``dtype`` (std 1), log_w fp32 in one of two regimes:
+    """q, k, v in ``dtype`` (std 1), log_w fp32 in one of three regimes:
     "init" (-softplus(N(0, 4e-4)), rwkv6's decay at JAX's init, ~ln 2 a
-    step) or "abs" (-|N(0, 1)|); bonus and a nonzero initial state."""
+    step), "abs" (-|N(0, 1)|) or "strong" (-8 + N(0, 0.25): a 16-row
+    block decays by ~128, past the factored diagonal's span); bonus and a
+    nonzero initial state."""
     dev = torch.device("cuda")
     q, k, v = (torch.randn(b, l, h, d, device=dev, generator=gen).to(dtype)
                for _ in range(3))
     z = torch.randn(b, l, h, d, device=dev, generator=gen)
-    lw = -torch.nn.functional.softplus(z * 4e-4) if regime == "init" \
-        else -z.abs()
+    lw = {"init": lambda: -torch.nn.functional.softplus(z * 4e-4),
+          "abs": lambda: -z.abs(),
+          "strong": lambda: -8.0 + 0.5 * z}[regime]()
     bonus = torch.randn(h, d, device=dev, generator=gen)
     s0 = torch.randn(b, h, d, d, device=dev, generator=gen)
     return q, k, v, lw, bonus, s0
 
 
+def _over(out, ref, tol):
+    """The largest |out - ref| over its bar atol + rtol |ref|."""
+    d = (out.float() - ref.float()).abs()
+    return float((d / (tol["atol"] + tol["rtol"] * ref.float().abs())).max())
+
+
 def check_ssm(ss, q, k, v, lw, chunk, variant, bonus, s0, what):
-    """The kernel against its plain version on the same inputs: y within
-    SSM_TOL of its dtype, the final state within SSM_STATE_TOL, all
-    finite.  Returns (max abs err of y, of the state, largest error over
-    the bar, RMS of y)."""
+    """The kernels against their plain version on the same inputs, and
+    against the plain version with its products summed in float64 from
+    the same fp32 factors (``gla_chunked_float64_sums``): against each, y
+    within SSM_TOL of its dtype and the final state within SSM_STATE_TOL,
+    all finite.  Returns the errors against the plain version (max abs of
+    y and of the state, the largest over the bar), the largest over the
+    bar against float64 sums, the plain version's own there, and y's
+    RMS."""
     y, s = ss.gla_chunked(q, k, v, lw, chunk=chunk, variant=variant,
                           bonus=bonus, initial_state=s0)
     torch.cuda.synchronize()
-    py, ps = ss.gla_chunked_plain(q, k, v, lw, chunk=chunk, variant=variant,
-                                  bonus=bonus, initial_state=s0)
+    kw = dict(chunk=chunk, variant=variant, bonus=bonus, initial_state=s0)
+    py, ps = ss.gla_chunked_plain(q, k, v, lw, **kw)
+    xy, xs = ss.gla_chunked_float64_sums(q, k, v, lw, **kw)
     tol = SSM_TOL[v.dtype]
-    d = (y.float() - py.float()).abs()
-    err, s_err = float(d.max()), float((s - ps).abs().max())
-    ratio = float((d / (tol["atol"] + tol["rtol"] * py.float().abs())).max())
-    rms = float(py.float().square().mean().sqrt())
-    if y.dtype != v.dtype or not (torch.isfinite(y).all()
-                                  and torch.isfinite(s).all()) \
-            or not torch.allclose(y.float(), py.float(), **tol) \
-            or not torch.allclose(s, ps, **SSM_STATE_TOL):
-        raise AssertionError(
-            f"ssm_scan {what}: y max abs err {err} (largest error "
-            f"{ratio:.3g} x the bar {tol}, {_beyond(y, py, tol)} elements "
-            f"beyond; y RMS {rms:.3g}), state max abs err {s_err} "
-            f"(bar {SSM_STATE_TOL}, {_beyond(s, ps, SSM_STATE_TOL)} "
-            f"beyond), finite {bool(torch.isfinite(y).all())}")
-    return err, s_err, ratio, rms
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    for name, ry, rs in (("the plain version", py, ps),
+                         ("the plain version's float64 sums", xy, xs)):
+        if y.dtype != v.dtype or not finite \
+                or not torch.allclose(y.float(), ry.float(), **tol) \
+                or not torch.allclose(s, rs, **SSM_STATE_TOL):
+            raise AssertionError(
+                f"ssm_scan {what} against {name}: y max abs err "
+                f"{float((y.float() - ry.float()).abs().max())} (largest "
+                f"error {_over(y, ry, tol):.3g} x the bar {tol}, "
+                f"{_beyond(y, ry, tol)} elements beyond), state max abs "
+                f"err {float((s - rs).abs().max())} (bar {SSM_STATE_TOL}, "
+                f"{_beyond(s, rs, SSM_STATE_TOL)} beyond), finite {finite}")
+    return dict(max_abs_err=float((y.float() - py.float()).abs().max()),
+                state_max_abs_err=float((s - ps).abs().max()),
+                err_over_bar=_over(y, py, tol),
+                err_over_bar_vs_float64_sums=_over(y, xy, tol),
+                plain_over_bar_vs_float64_sums=_over(py, xy, tol),
+                y_rms=float(py.float().square().mean().sqrt()))
+
+
+def ssm_note(c, tol):
+    return (f"against the plain version y max abs err {c['max_abs_err']:.3g}"
+            f" ({c['err_over_bar']:.3g} of the bar {tol}, y RMS "
+            f"{c['y_rms']:.3g}), state {c['state_max_abs_err']:.3g}; "
+            f"against its float64 sums {c['err_over_bar_vs_float64_sums']:.3g}"
+            f" of the bar (the plain version "
+            f"{c['plain_over_bar_vs_float64_sums']:.3g})")
+
+
+def ssm_device_us(ss, run, calls=5, windows=3):
+    """Device microseconds a call of each ssm_scan kernel, from a profiler
+    window over ``calls`` calls, which must hold each of SSM_KERNELS
+    exactly ``calls`` times and nothing else of ssm_scan (the count the
+    wrapper keeps is checked against SSM_KERNELS too).  A window that
+    lost a record is taken again, up to ``windows`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        before = ss.gla_chunked.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        counted = ss.gla_chunked.launches - before
+        us, seen = {}, {}
+        for e in prof.key_averages():
+            name = re.search(r"(ssm_\w+)", e.key)
+            if e.device_type == torch.autograd.DeviceType.CUDA and name:
+                us[name.group(1)] = e.self_device_time_total / calls
+                seen[name.group(1)] = seen.get(name.group(1), 0) + e.count
+        if counted != calls * len(SSM_KERNELS) \
+                or set(seen) - set(SSM_KERNELS) \
+                or any(n > calls for n in seen.values()):
+            raise AssertionError(f"ssm_scan: {calls} calls counted "
+                                 f"{counted} launches in the wrapper and "
+                                 f"{seen} in the profiler, not {calls} of "
+                                 f"each of {SSM_KERNELS}")
+        if seen == {name: calls for name in SSM_KERNELS}:
+            return us
+    raise AssertionError(f"ssm_scan: the profiler saw {seen} in {calls} "
+                         f"calls, not {calls} of each of {SSM_KERNELS}")
 
 
 def phase_ssm(ss, report):
     """``ssm_scan`` against its plain version on the card: the rwkv serve
     path's two prefill shapes (32 heads of 64, chunk 128) and a ragged
-    L = 300, both variants, both decay regimes, bf16 r/k/v with fp32
+    L = 300, both variants, three decay regimes, bf16 r/k/v with fp32
     log_w (the model's) and all fp32, with bonus and a nonzero initial
-    state; timed at the serve shapes (rwkv, bf16, init decay); and the
-    kernel against the fp32 token-by-token recurrence at (1, 512)."""
+    state; timed at the serve shapes (rwkv, bf16, init decay) with each
+    kernel's device time; and the kernel against the fp32 token-by-token
+    recurrence at (1, 512)."""
     from repro_torch.nn.linear_attn import gla_decode
     gen = torch.Generator(device="cuda").manual_seed(0)
     h, d, chunk = 32, 64, 128
     rows = []
     for b, l in RWKV_PREFILLS + [(2, 300)]:
         for variant in ("rwkv", "mamba"):
-            for regime in ("init", "abs"):
+            for regime in SSM_REGIMES:
                 for dt in (torch.bfloat16, torch.float32):
                     x = ssm_inputs(b, l, h, d, regime, dt, gen)
                     dtype = str(dt).replace("torch.", "")
                     what = (f"({b}, {l}, {h}, {d}) {variant} {regime} "
                             f"{dtype}")
-                    err, s_err, ratio, rms = check_ssm(
-                        ss, *x[:4], chunk, variant, *x[4:], what)
+                    c = check_ssm(ss, *x[:4], chunk, variant, *x[4:], what)
                     row = dict(shape=[b, l, h, d], variant=variant,
-                               regime=regime, dtype=dtype, max_abs_err=err,
-                               state_max_abs_err=s_err, err_over_bar=ratio,
-                               y_rms=rms)
-                    note = (f"y max abs err {err:.3g} ({ratio:.3g} of the "
-                            f"bar {SSM_TOL[dt]}, y RMS {rms:.3g}), state "
-                            f"{s_err:.3g}")
+                               regime=regime, dtype=dtype, **c)
+                    note = ssm_note(c, SSM_TOL[dt])
                     timed = (variant == "rwkv" and regime == "init"
                              and dt == torch.bfloat16 and l > 300)
                     if timed:
@@ -807,7 +924,12 @@ def phase_ssm(ss, report):
                         # in; the state in and out fp32
                         nbytes = (q.numel() * (4 * q.element_size() + 4)
                                   + 2 * 4 * b * h * d * d)
-                        b_ms, b_by = bound(nbytes, flops)
+                        # the function's work at the TF32 peak; beside it
+                        # the 3xTF32 split's products, the products the
+                        # kernels issue, and the fp32-FMA bound
+                        b_ms, b_by = bound(nbytes, flops, PEAK_TF32_PER_S)
+                        fma_ms, _ = bound(nbytes, flops)
+                        macs = ssm_kernel_macs(b, l, h, d, d, chunk, True)
                         run = lambda: ss.gla_chunked(  # noqa: E731
                             q, k, v, lw, chunk=chunk, variant="rwkv",
                             bonus=bonus, initial_state=s0)
@@ -818,11 +940,23 @@ def phase_ssm(ss, report):
                                    ms=cuda_ms(run, 10),
                                    plain_ms=cuda_ms(plain, 2),
                                    library_ms=None, bound_ms=b_ms,
-                                   bound_by=b_by)
+                                   bound_by=b_by, fp32_fma_bound_ms=fma_ms,
+                                   split_products_ms=(
+                                       3 * flops / PEAK_TF32_PER_S * 1e3),
+                                   kernel_products_ms=(
+                                       2 * macs / PEAK_TF32_PER_S * 1e3),
+                                   device_us=ssm_device_us(ss, run))
+                        parts = ", ".join(f"{k_} {v_:.1f}" for k_, v_ in
+                                          row["device_us"].items())
                         log(f"[kernels] ssm_scan {row['shape']} rwkv bf16 "
-                            f"init: {row['ms']:.4f} ms kernel, "
+                            f"init: {row['ms']:.4f} ms kernels, "
                             f"{row['plain_ms']:.4f} ms plain, library none, "
-                            f"bound {b_ms:.4f} ms ({b_by}); {note}")
+                            f"bound {b_ms:.4f} ms ({b_by}; the 3xTF32 "
+                            f"split's products {row['split_products_ms']:.4f}"
+                            f" ms, the kernels' products "
+                            f"{row['kernel_products_ms']:.4f} ms at the TF32 "
+                            f"peak, fp32-FMA bound {fma_ms:.4f} ms); device "
+                            f"us a call: {parts}; {note}")
                     else:
                         log(f"[kernels] ssm_scan {what}: {note}")
                     rows.append(row)
@@ -857,6 +991,49 @@ def phase_ssm(ss, report):
             shape=[1, 512, h, d], variant=variant, regime="init",
             dtype="float32", max_abs_err=err))
     return rows
+
+
+def phase_guard(ac, dg, fa, ss):
+    """No kernel wrapper hands autograd an output it cannot differentiate:
+    with grad enabled, each raises for a CUDA input that requires grad;
+    under ``torch.no_grad()`` each computes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *shape: torch.randn(*shape, device=dev,  # noqa: E731
+                                   generator=gen)
+    preds = torch.randint(0, 4, (6, 300), device=dev, dtype=torch.int32,
+                          generator=gen)
+    qkv = [r(1, 64, 4, 64).to(torch.bfloat16) for _ in range(3)]
+    calls = {
+        "alpha_combine": lambda g: ac.alpha_combine(
+            r(5, 1000).requires_grad_(g), r(5, 3).abs()),
+        "disagreement_counts": lambda g: dg.disagreement_counts(
+            preds, torch.ones(300, device=dev).requires_grad_(g)),
+        "disagreement": lambda g: dg.disagreement(
+            preds, torch.ones(300, device=dev).requires_grad_(g)),
+        "flash_attention": lambda g: fa.flash_attention(
+            qkv[0].clone().requires_grad_(g), qkv[1], qkv[2]),
+        "ssm_scan": lambda g: ss.gla_chunked(
+            qkv[0], qkv[1], qkv[2].clone().requires_grad_(g),
+            -r(1, 64, 4, 64).abs(), chunk=32, variant="rwkv",
+            bonus=r(4, 64)),
+    }
+    for name, call in calls.items():
+        try:
+            call(True)
+        except RuntimeError as e:
+            if "requires grad" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: a CUDA input requiring grad, "
+                                 f"with grad enabled, did not raise")
+        with torch.no_grad():
+            call(True)
+        call(False)
+    torch.cuda.synchronize()
+    log(f"[guard] {sorted(calls)}: each raises for a CUDA input that "
+        f"requires grad with grad enabled, and computes under no_grad and "
+        f"without grad")
 
 
 def _decode_gap(dec, pre, what):
@@ -922,16 +1099,19 @@ def phase_serve_rwkv(counted, report):
     prompts = [torch.randint(0, cfg.vocab_size, shape, device=dev,
                              generator=gen) for shape in RWKV_PREFILLS]
 
-    # the main path: two full-width prefills through the kernel, counted
+    # the main path: two full-width prefills through the kernels, counted
+    # (kernels a call x a call a layer)
+    per_call = len(SSM_KERNELS)
     zero_counts(counted)
     first = [_timed(lambda p=p: model.prefill(params, {"tokens": p}))
              for p in prompts]
     launches = read_counts(counted)
-    log(f"[serve-rwkv] launches in the serve path: {launches}")
-    if launches["ssm_scan"] != 2 * cfg.num_layers:
+    log(f"[serve-rwkv] launches in the serve path: {launches} ({per_call} "
+        f"ssm_scan kernels a call)")
+    if launches["ssm_scan"] != 2 * per_call * cfg.num_layers:
         raise AssertionError(f"ssm_scan launched {launches['ssm_scan']} "
-                             f"times in two prefills, not "
-                             f"{2 * cfg.num_layers}")
+                             f"kernels in two prefills, not "
+                             f"{2 * per_call * cfg.num_layers}")
     out = dict(params=n_params, init_s=init_s, launches=launches,
                prefill=[])
     for (b, s), p, (logits, first_s) in zip(RWKV_PREFILLS, prompts, first):
@@ -945,28 +1125,25 @@ def phase_serve_rwkv(counted, report):
         again, steady_s = _timed(lambda: model.prefill(params,
                                                        {"tokens": p}))
         peak = torch.cuda.max_memory_allocated()
-        if ss.launches != before + cfg.num_layers:
+        if ss.launches != before + per_call * cfg.num_layers:
             raise AssertionError("a later prefill did not launch the "
-                                 "kernel once per layer")
+                                 "kernels once per layer")
         if not torch.equal(again, logits):
             raise AssertionError(f"prefill {(b, s)} is not deterministic")
         r, k, v, lw, bonus = rwkv_layer0(model, params, p)
-        l0_err, l0_s_err, l0_ratio, l0_rms = check_ssm(
-            ss_ops, r, k, v, lw, cfg.ssm.chunk, "rwkv", bonus, None,
-            f"layer 0 of prefill {(b, s)}")
+        l0 = check_ssm(ss_ops, r, k, v, lw, cfg.ssm.chunk, "rwkv", bonus,
+                       None, f"layer 0 of prefill {(b, s)}")
         del r, k, v, lw
         out["prefill"].append(dict(
             shape=[b, s], first_s=first_s, steady_s=steady_s,
             tok_per_s=b * s / steady_s, peak_gb=peak / 1e9,
-            layer0_max_abs_err=l0_err, layer0_state_max_abs_err=l0_s_err,
-            layer0_err_over_bar=l0_ratio, layer0_y_rms=l0_rms))
+            **{f"layer0_{k_}": v_ for k_, v_ in l0.items()}))
         log(f"[serve-rwkv] prefill {(b, s)}: first call {first_s:.4f} s, "
             f"again {steady_s:.4f} s ({b * s / steady_s:,.0f} tokens/s), "
             f"peak memory {peak / 1e9:.2f} GB")
         log(f"[serve-rwkv] layer 0 of prefill {(b, s)}: kernel vs plain on "
-            f"the model's r, k, v, log_w: y max abs err {l0_err:.3g} "
-            f"({l0_ratio:.3g} of the bar {SSM_TOL[torch.bfloat16]}, y RMS "
-            f"{l0_rms:.3g}), state {l0_s_err:.3g}")
+            f"the model's r, k, v, log_w: "
+            f"{ssm_note(l0, SSM_TOL[torch.bfloat16])}")
         torch.cuda.empty_cache()
 
     # serve.generate: a (4, 64) prompt through decode_step, 32 greedy
@@ -1361,6 +1538,9 @@ def main() -> int:
     tf32 = check_alpha_sass(_build)
     report["alpha_combine_tf32_mma"] = tf32
     log(f"[build] alpha_combine kernel SASS: TF32 MMA instructions {tf32}")
+    tf32 = check_ssm_sass(_build)
+    report["ssm_scan_tf32_mma"] = tf32
+    log(f"[build] ssm_scan kernel SASS: TF32 MMA instructions {tf32}")
 
     # 3. kernels against their plain versions
     rows = phase_kernels(ac, dg, report)
@@ -1368,6 +1548,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["ssm_scan"] = phase_ssm(ss, report)
     torch.cuda.empty_cache()
+    # 3b. no wrapper cuts autograd
+    phase_guard(ac, dg, fa, ss)
 
     # 4. main path at full size, counted
     launches, state, stlf = phase_main_path(ac, dg, counted, report)
@@ -1400,6 +1582,8 @@ def main() -> int:
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"]))
+        if "device_us" in main:     # the CUDA kernels behind the wrapper
+            kernels[-1]["cuda_kernels"] = main["device_us"]
     log("[report] " + json.dumps(report))
     log(smi)
     log(json.dumps({"kernels": kernels}))

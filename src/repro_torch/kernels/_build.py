@@ -6,6 +6,8 @@ build takes seconds) and loaded with ``ctypes``.  Libraries go to
 ``build/repro_torch/`` at the repository root, named by a hash of the
 source, so an edited source is rebuilt and an unchanged one is not.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
+No kernel has a backward pass: ``refuse_grad`` stops a CUDA call whose
+output autograd would need to differentiate.
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
@@ -107,3 +111,20 @@ def check(name: str, err: int) -> None:
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({fn(err).decode()})")
+
+
+def refuse_grad(name: str, plain: str,
+                *tensors: Optional[torch.Tensor]) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and a floating-point
+    input requires grad: the kernel's output would carry no ``grad_fn``
+    and a backward pass would silently miss its inputs.  The caller
+    should compute ``plain`` (the differentiable plain version) instead;
+    nothing here reroutes to it."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t is not None and t.is_floating_point() and t.requires_grad:
+            raise RuntimeError(
+                f"{name}: an input requires grad, and the CUDA kernel has "
+                f"no backward pass; call {plain} (differentiable), or run "
+                f"under torch.no_grad()")

@@ -67,7 +67,8 @@ def _ready(theta: torch.Tensor, alpha: torch.Tensor) -> bool:
 def alpha_combine(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """theta (S, P), alpha (S, T) -> (T, P) float32.  CPU tensors take
     the plain version; CUDA tensors must be contiguous float32 on one
-    device, and launch the kernels (``launches`` counts each kernel)."""
+    device, and launch the kernels (``launches`` counts each kernel);
+    with grad enabled neither may require grad (no backward kernel)."""
     if not _ready(theta, alpha):
         if theta.dim() != 2 or alpha.dim() != 2 \
                 or theta.shape[0] != alpha.shape[0]:
@@ -83,6 +84,8 @@ def alpha_combine(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
             if t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError(f"alpha_combine: {name} must be contiguous "
                                  f"float32, got {t.dtype}")
+    _build.refuse_grad("alpha_combine", "repro_torch.kernels."
+                       "alpha_combine.ops.alpha_combine_plain", theta, alpha)
     (s, p), t_ = theta.shape, alpha.shape[1]
     out = theta.new_empty((t_, p))
     if s == 0 or t_ == 0 or p == 0:

@@ -109,6 +109,8 @@ def _launch(preds: torch.Tensor, valid: Optional[torch.Tensor],
             normalize: bool) -> torch.Tensor:
     """One launch on the current stream: preds (N, M) contiguous int32 and
     valid (M,) contiguous float32 or None, on one CUDA device."""
+    _build.refuse_grad("disagreement", "repro_torch.kernels.disagreement."
+                       "ops.disagreement_counts_plain", valid)
     n, m = preds.shape
     out = preds.new_empty((n, n), dtype=torch.float32)
     if n == 0 or m == 0:

@@ -59,11 +59,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         mask = mask & (kj > qi - window)
     # (B, H, Sq, Sk) fp32, updated in place: at (1, 9216, 32, 64) it is
-    # 10.9 GB, and the einsum's output is the only other copy
+    # 10.9 GB, and the einsum's output is the only other copy; out of
+    # place where autograd needs the intermediates
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / d ** 0.5),
                      k.float())
-    s.masked_fill_(~mask, NEG_INF)
-    s.sub_(s.amax(-1, keepdim=True)).exp_().mul_(mask)
+    if s.requires_grad:
+        s = s.masked_fill(~mask, NEG_INF)
+        s = (s - s.amax(-1, keepdim=True)).exp() * mask
+    else:
+        s.masked_fill_(~mask, NEG_INF)
+        s.sub_(s.amax(-1, keepdim=True)).exp_().mul_(mask)
     denom = s.sum(-1, keepdim=True).clamp_min_(1e-20)
     out = torch.einsum("bhqk,bkhd->bhqd", s, v.float()) / denom
     return out.transpose(1, 2).to(q.dtype)
@@ -98,7 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     query i at absolute position i + Sk - Sq.  CPU tensors take the plain
     version; CUDA tensors (float32 or bfloat16, one dtype, unit stride in
     D, D in ``HEAD_DIMS``, on one device; bf16 also as ``check_staging``
-    says) launch the kernel."""
+    says) launch the kernel; with grad enabled none may require grad."""
     _check(q, k, v, window)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -114,6 +119,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"in D, got strides {t.stride()}")
         if t.dtype == torch.bfloat16:
             check_staging(name, t)
+    _build.refuse_grad("flash_attention", "repro_torch.kernels."
+                       "flash_attention.ops.flash_attention_plain", q, k, v)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:

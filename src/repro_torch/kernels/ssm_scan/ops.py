@@ -1,6 +1,6 @@
 """Chunked gated linear attention (the rwkv / mamba scan).
 
-``gla_chunked`` launches the CUDA kernel in ``csrc/ssm_scan.cu`` for
+``gla_chunked`` launches the CUDA kernels in ``csrc/ssm_scan.cu`` for
 CUDA tensors and computes ``gla_chunked_plain``
 (``repro_torch.nn.linear_attn.gla_chunked``) for CPU tensors; there is no
 other fallback.  It replaces the Pallas TPU kernel
@@ -8,18 +8,27 @@ other fallback.  It replaces the Pallas TPU kernel
 ``gla_chunked_bhncd``) and its wrapper ``ops.gla_chunked``, with the same
 (B, L, H, D) signature.
 
-Unlike JAX's wrapper it pads and transposes nothing: the kernel reads
-each tensor in its own dtype (float32 or bfloat16) through its strides
-and masks the ragged last chunk as JAX pads it.  Its intra-chunk decay
-is cut into 16-row sub-chunks so that no exponent is positive (JAX's
-factoring overflows float32 at rwkv6-1.6b's chunk of 128; see
-``nn/linear_attn.py``).  On the H100 it is bound by its fp32 flops; this
-first kernel does them as FMAs from shared memory (see the source's
-header).
+Unlike JAX's wrapper it pads and transposes nothing: the kernels stage
+each tensor in its own dtype (float32 or bfloat16) through its strides by
+16-byte copies (``check_staging``) and mask the ragged last chunk as JAX
+pads it.  Three launches a call (``gla_chunked.launches`` counts each):
+every chunk's own state contribution in parallel, a scan of the chunks'
+starting states through a scratch the wrapper allocates, and every
+chunk's output in parallel, its products on the tensor cores in 3xTF32.
+The intra-chunk decay is cut into 16-row sub-chunks so that no factor
+overflows (JAX's factoring overflows float32 at rwkv6-1.6b's chunk of
+128; see ``nn/linear_attn.py``).  The kernels agree with the plain
+version within the bars ``chip_smoke.py`` states, not bit for bit (see
+the source's header).  No kernel has a backward pass: with grad enabled,
+an input that requires grad raises (``_build.refuse_grad``).
+
+``gla_chunked_float64_sums`` is a reference for checks, on no path of the
+port: the plain version with its matrix products summed in float64.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -30,7 +39,7 @@ from repro_torch.nn.linear_attn import gla_chunked as gla_chunked_plain
 
 SUB, CMAX, DKMAX = 16, 128, 64          # the kernel's limits
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURE = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
+_SIGNATURE = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
               + (ctypes.c_longlong,) * 15 + (ctypes.c_int,) * 4
               + (ctypes.c_void_p,))
 
@@ -56,6 +65,35 @@ def _check(q, k, v, log_w, variant, bonus, initial_state):
                          f"{(b, h, dk, v.shape[3])}")
 
 
+def check_staging(name: str, t: torch.Tensor) -> None:
+    """The kernels stage rows with 16-byte ``cp.async``: ``t``'s data
+    pointer must be 16-byte aligned and its B, L and H strides multiples
+    of 16 bytes (8 bfloat16 or 4 float32 elements).  Raises
+    ``ValueError`` otherwise; nothing falls back."""
+    step = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(s % step for s in t.stride()[:3]):
+        raise ValueError(f"gla_chunked: {name} ({t.dtype}) needs a 16-byte "
+                         f"aligned data pointer and strides in B, L and H "
+                         f"that are multiples of {step} elements, got "
+                         f"pointer {t.data_ptr():#x} and strides "
+                         f"{t.stride()}")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, l: int, h: int, dk: int, dv: int,
+          chunk: int) -> Tuple[int, int]:
+    """(kernels a call launches, fp32 scratch it needs in floats), from
+    the C entry ``ssm_scan_plan``: 3, or 1 (the scan alone) when L = 0."""
+    floats = ctypes.c_longlong()
+    kernels = _build.entry("ssm_scan", "ssm_scan_plan",
+                           (ctypes.c_int,) * 6 + (ctypes.c_void_p,))(
+        b, l, h, dk, dv, chunk, ctypes.byref(floats))
+    if kernels == 0:
+        raise ValueError(f"gla_chunked: the kernels do not take (B, L, H, "
+                         f"Dk, Dv, chunk) = {(b, l, h, dk, dv, chunk)}")
+    return kernels, floats.value
+
+
 def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 log_w: torch.Tensor, *, chunk: int, variant: str = "mamba",
                 bonus: Optional[torch.Tensor] = None,
@@ -66,8 +104,9 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (y (B, L, H, Dv) in v's dtype, final_state (B, H, Dk, Dv) fp32).
 
     CPU tensors take the plain version.  CUDA tensors (each float32 or
-    bfloat16, unit stride in D, on one device; Dk ≤ 64; chunk a multiple
-    of 16 up to 128) launch the kernel."""
+    bfloat16, unit stride in D, staged as ``check_staging`` says, on one
+    device; Dk ≤ 64; chunk a multiple of 16 up to 128) launch the
+    kernels; with grad enabled none may require grad."""
     _check(q, k, v, log_w, variant, bonus, initial_state)
     tensors = [("q", q), ("k", k), ("v", v), ("log_w", log_w)]
     extra = [(n, t) for n, t in (("bonus", bonus),
@@ -89,6 +128,9 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1 and t.shape[3] > 1:
             raise ValueError(f"gla_chunked: {name} needs unit stride in "
                              f"D, got strides {t.stride()}")
+        check_staging(name, t)
+    _build.refuse_grad("ssm_scan", "repro_torch.nn.linear_attn."
+                       "gla_chunked", q, k, v, log_w, bonus, initial_state)
     b, l, h, dk = q.shape
     dv = v.shape[3]
     if dk > DKMAX or chunk % SUB or not SUB <= chunk <= CMAX:
@@ -103,18 +145,48 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          else bonus.float().contiguous())
     s0 = None if initial_state is None \
         else initial_state.float().contiguous()
+    kernels, floats = _plan(b, l, h, dk, dv, chunk)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     launch = _build.entry("ssm_scan", "ssm_scan_fwd", _SIGNATURE)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
                  u.data_ptr(), 0 if s0 is None else s0.data_ptr(),
-                 y.data_ptr(), s_fin.data_ptr(),
+                 y.data_ptr(), s_fin.data_ptr(), scratch.data_ptr(),
                  b, l, h, dk, dv, chunk, int(variant == "rwkv"),
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *log_w.stride()[:3], *y.stride()[:3],
                  *(_BF16[t.dtype] for _, t in tensors),
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check("ssm_scan", err)
-    gla_chunked.launches += 1
+    gla_chunked.launches += kernels
     return y, s_fin
 
 
 gla_chunked.launches = 0
+
+
+class _Float64Sums(torch.overrides.TorchFunctionMode):
+    """fp32 matrix products (``@``, ``matmul``, ``einsum``) summed in
+    float64 from their fp32 operands and rounded once to fp32."""
+
+    PRODUCTS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
+                torch.einsum)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in self.PRODUCTS or not any(
+                isinstance(a, torch.Tensor) and a.dtype == torch.float32
+                for a in args):
+            return func(*args, **kwargs)
+        up = [a.double() if isinstance(a, torch.Tensor)
+              and a.dtype == torch.float32 else a for a in args]
+        return func(*up, **kwargs).float()
+
+
+def gla_chunked_float64_sums(q, k, v, log_w, **kwargs):
+    """``gla_chunked_plain`` with the same fp32 factors, its products
+    (the scores, att·v, the readout, each chunk's state contribution)
+    summed in float64 and rounded where the plain version rounds them:
+    how far the kernels' sums, and the plain version's fp32 sums, lie
+    from exact sums.  For checks (``chip_smoke.py``, the tests)."""
+    with _Float64Sums():
+        return gla_chunked_plain(q, k, v, log_w, **kwargs)

@@ -5,9 +5,10 @@ lerps with learned per-channel mixes, a low-rank data-dependent decay
 ``w_t = exp(-softplus(w0 + tanh(x_w A) B))``, per-channel bonus ``u``, the
 WKV recurrence (the GLA primitive, ``"rwkv"`` variant), per-head group
 norm and ``silu(g)`` gating.  ``time_mix`` runs the WKV through the
-``ssm_scan`` kernel's wrapper (its plain version on CPU tensors), where
-JAX calls ``nn.linear_attn.gla_chunked``; ``time_mix_decode`` steps
-``gla_decode``.  The casts are JAX's: weights are cast to ``dtype``
+``ssm_scan`` kernel's wrapper (its plain version on CPU tensors), or with
+``impl="plain"`` through ``nn.linear_attn.gla_chunked`` (differentiable),
+where JAX calls its ``nn.linear_attn.gla_chunked``; ``time_mix_decode``
+steps ``gla_decode``.  The casts are JAX's: weights are cast to ``dtype``
 (bfloat16 unless given; the JAX model passes none) and a product of
 activations and weights of two dtypes is taken in the wider (``_mm``).
 """
@@ -18,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
-from repro_torch.nn.linear_attn import gla_decode
+from repro_torch.nn.linear_attn import gla_chunked, gla_decode
 from repro_torch.nn.param import ParamSpec
 
 LORA = 64
@@ -111,14 +112,21 @@ def _out(p, y, g, dtype):
 
 
 def time_mix(p, x, cfg: ModelConfig, *, prev_x, state,
-             dtype=torch.bfloat16):
-    """Full-sequence WKV through the ``ssm_scan`` kernel.  prev_x: (B,D);
-    state: (B,H,hd,hd) fp32 or None.  Returns (out, (last x, state))."""
+             dtype=torch.bfloat16, impl="kernel"):
+    """Full-sequence WKV.  prev_x: (B,D); state: (B,H,hd,hd) fp32 or
+    None.  Returns (out, (last x, state)).  ``impl="kernel"`` runs the
+    ``ssm_scan`` wrapper (the CUDA kernels, which have no backward pass,
+    or the plain version on the CPU); ``"plain"`` runs
+    ``nn.linear_attn.gla_chunked`` on any device, differentiable, as JAX
+    differentiates its jnp ``gla_chunked``."""
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"time_mix: impl {impl!r} is not 'kernel' or "
+                         f"'plain'")
     h, hd = cfg.num_heads, cfg.resolved_head_dim()
     r, k, v, g, log_w = _rkvgw(p, x, _shift(x, prev_x), h, hd, dtype)
-    y, s_final = ssm_ops.gla_chunked(r, k, v, log_w, chunk=cfg.ssm.chunk,
-                                     variant="rwkv", bonus=p["bonus"],
-                                     initial_state=state)
+    scan = ssm_ops.gla_chunked if impl == "kernel" else gla_chunked
+    y, s_final = scan(r, k, v, log_w, chunk=cfg.ssm.chunk, variant="rwkv",
+                      bonus=p["bonus"], initial_state=state)
     return _out(p, y, g, dtype), (x[:, -1], s_final)
 
 

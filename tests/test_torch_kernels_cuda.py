@@ -296,9 +296,8 @@ def test_prefill_goes_through_the_flash_kernel(cuda):
 
 
 # ssm_scan: (b, l, h, dk, dv, chunk, variant), tests/test_kernels.py's
-# grid, ragged tails (50, 300), a ragged Dv slice (24), and rwkv6-1.6b's
-# own head and chunk; the last two have B*H = 128 blocks, enough for the
-# kernel's 64-column Dv slices (the others take 16-column slices)
+# grid, ragged tails (50, 300), a ragged Dv (24), rwkv6-1.6b's own head
+# and chunk, and at batch 1 a long sequence (32 chunks of 128)
 SSM_GRID = [
     (2, 64, 2, 16, 16, 16, "mamba"),
     (1, 96, 3, 32, 32, 32, "rwkv"),
@@ -308,7 +307,47 @@ SSM_GRID = [
     (2, 300, 3, 64, 64, 128, "mamba"),
     (4, 300, 32, 64, 64, 128, "rwkv"),
     (8, 80, 16, 32, 24, 32, "mamba"),
+    (1, 4096, 32, 64, 64, 128, "rwkv"),
 ]
+# the kernels one ssm_scan call launches: every chunk's state
+# contribution, the scan of the chunks' starting states, every chunk's
+# output
+SSM_KERNELS = 3
+
+
+def _ssm_case(cuda, b, l, h, dk, dv, dtype, log_w):
+    """q, k, v of ``dtype``, log_w (fp32, as the model passes it), bonus
+    and a nonzero initial state on the card."""
+    q, k = (torch.as_tensor(RNG.normal(size=(b, l, h, dk)), dtype=dtype,
+                            device=cuda) for _ in range(2))
+    v = torch.as_tensor(RNG.normal(size=(b, l, h, dv)), dtype=dtype,
+                        device=cuda)
+    lw = torch.as_tensor(log_w(size=(b, l, h, dk)), dtype=torch.float32,
+                         device=cuda)
+    bonus = torch.as_tensor(RNG.normal(size=(h, dk)), dtype=torch.float32,
+                            device=cuda)
+    s0 = torch.as_tensor(RNG.normal(size=(b, h, dk, dv)),
+                         dtype=torch.float32, device=cuda)
+    return q, k, v, lw, bonus, s0
+
+
+def _ssm_check(ss, x, chunk, variant, tol):
+    """The kernels against the plain version, and against the plain
+    version with its products summed in float64 from the same fp32
+    factors (how far both sums lie from exact)."""
+    q, k, v, lw, bonus, s0 = x
+    before = ss.gla_chunked.launches
+    y, s = ss.gla_chunked(q, k, v, lw, chunk=chunk, variant=variant,
+                          bonus=bonus, initial_state=s0)
+    torch.cuda.synchronize()
+    assert ss.gla_chunked.launches == before + SSM_KERNELS
+    assert y.dtype == v.dtype and y.shape == v.shape
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    for ref in (ss.gla_chunked_plain, ss.gla_chunked_float64_sums):
+        py, ps = ref(q, k, v, lw, chunk=chunk, variant=variant, bonus=bonus,
+                     initial_state=s0)
+        torch.testing.assert_close(y.float(), py.float(), **tol)
+        torch.testing.assert_close(s, ps, atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -322,28 +361,10 @@ SSM_GRID = [
 def test_ssm_scan_kernel_on_card(cuda, b, l, h, dk, dv, chunk, variant,
                                  dtype, tol):
     from repro_torch.kernels.ssm_scan import ops as ss
-    q, k = (torch.as_tensor(RNG.normal(size=(b, l, h, dk)), dtype=dtype,
-                            device=cuda) for _ in range(2))
-    v = torch.as_tensor(RNG.normal(size=(b, l, h, dv)), dtype=dtype,
-                        device=cuda)
-    # log_w stays fp32, as the model passes it
-    lw = -torch.as_tensor(np.abs(RNG.normal(size=(b, l, h, dk))),
-                          dtype=torch.float32, device=cuda)
-    bonus = torch.as_tensor(RNG.normal(size=(h, dk)), dtype=torch.float32,
-                            device=cuda)
-    s0 = torch.as_tensor(RNG.normal(size=(b, h, dk, dv)),
-                         dtype=torch.float32, device=cuda)
-    before = ss.gla_chunked.launches
-    y, s = ss.gla_chunked(q, k, v, lw, chunk=chunk, variant=variant,
-                          bonus=bonus, initial_state=s0)
-    torch.cuda.synchronize()
-    assert ss.gla_chunked.launches == before + 1
-    assert y.dtype == dtype and y.shape == (b, l, h, dv)
-    py, ps = ss.gla_chunked_plain(q, k, v, lw, chunk=chunk, variant=variant,
-                                  bonus=bonus, initial_state=s0)
-    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
-    torch.testing.assert_close(y.float(), py.float(), **tol)
-    torch.testing.assert_close(s, ps, atol=1e-5, rtol=1e-4)
+    x = _ssm_case(cuda, b, l, h, dk, dv, dtype,
+                  lambda size: -np.abs(RNG.normal(size=size)))
+    _ssm_check(ss, x, chunk, variant, tol)
+    q, k, v, lw = x[:4]
     with pytest.raises(ValueError):
         ss.gla_chunked(q, k.cpu(), v, lw, chunk=chunk)     # no fallback
     with pytest.raises(ValueError):
@@ -365,8 +386,64 @@ def test_prefill_goes_through_the_ssm_scan_kernel(cuda):
                            device=cuda)
     before = ss.gla_chunked.launches
     out = model.prefill(params, {"tokens": toks})
-    assert ss.gla_chunked.launches == before + cfg.num_layers
+    assert ss.gla_chunked.launches == before + SSM_KERNELS * cfg.num_layers
     # a CPU generator draws the same weights for either device
     cpu = model.prefill(model.init(torch.Generator().manual_seed(0),
                                    device="cpu"), {"tokens": toks.cpu()})
     torch.testing.assert_close(out.cpu(), cpu, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["rwkv", "mamba"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32,
+                                        dict(atol=1e-5, rtol=1e-4)),
+                                       (torch.bfloat16,
+                                        dict(atol=1e-5, rtol=2.0 ** -7))])
+def test_ssm_scan_strong_decay_on_card(cuda, variant, dtype, tol):
+    # log_w = -8 +- 0.5: a 16-row block decays by ~128, past the factored
+    # diagonal's span, so every diagonal block takes the per-pair branch
+    from repro_torch.kernels.ssm_scan import ops as ss
+    x = _ssm_case(cuda, 2, 300, 4, 64, 64, dtype,
+                  lambda size: -8.0 + 0.5 * RNG.normal(size=size))
+    _ssm_check(ss, x, 128, variant, tol)
+
+
+def _wrapper_calls(cuda):
+    """Each kernel wrapper on small CUDA inputs; ``g`` marks one floating
+    input as requiring grad."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssm_scan import ops as ss
+    r = lambda *shape: torch.as_tensor(  # noqa: E731
+        RNG.normal(size=shape), dtype=torch.float32, device=cuda)
+    preds = torch.as_tensor(_preds(6, 300), device=cuda)
+    qkv = [r(1, 64, 4, 64).to(torch.bfloat16) for _ in range(3)]
+    return {
+        "alpha_combine": lambda g: ac.alpha_combine(
+            r(5, 1000).requires_grad_(g), r(5, 3).abs()),
+        "disagreement_counts": lambda g: dg.disagreement_counts(
+            preds, torch.ones(300, device=cuda).requires_grad_(g)),
+        "disagreement": lambda g: dg.disagreement(
+            preds, torch.ones(300, device=cuda).requires_grad_(g)),
+        "flash_attention": lambda g: fa.flash_attention(
+            qkv[0].clone().requires_grad_(g), qkv[1], qkv[2]),
+        "gla_chunked": lambda g: ss.gla_chunked(
+            qkv[0], qkv[1], qkv[2].clone().requires_grad_(g),
+            -r(1, 64, 4, 64).abs(), chunk=32, variant="rwkv",
+            bonus=r(4, 64)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["alpha_combine", "disagreement_counts",
+                                  "disagreement", "flash_attention",
+                                  "gla_chunked"])
+def test_wrapper_refuses_grad_on_card(cuda, name):
+    # no kernel has a backward pass: an output autograd would need raises
+    # instead of silently dropping the gradient; no grad needed computes
+    call = _wrapper_calls(cuda)[name]
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call(True)
+    with torch.no_grad():
+        call(True)
+    call(False)
+    torch.cuda.synchronize()
