@@ -50,6 +50,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
              tau=4, T=25, the default solver), through the port's entry
              points on ``cuda``; every kernel's launch count is zeroed
              just before and read just after, and must have risen.
+4b. baselines — the paper's comparison matrix (``run_all_baselines``:
+             the four alpha-baselines on ST-LF's psi, the four
+             psi-baselines) on that state, counted: ``alpha_combine``
+             once a method; FADA's columns sum to one at its targets;
+             on the card its gaps agree with the CPU port's on the same
+             draws within 2 rows of a pair's data and its weights within
+             1e-2 of their largest entry (the discriminators' SGD
+             amplifies float32 noise in the features, see
+             ``FADA_GAP_ROWS``), and half the learning rate (a planted
+             fault) breaks both bars.
+4c. sim    — the simulator's sync path through its CLI
+             (``python -m repro_torch.sim.run``, ``--trace``): the
+             default run (channel-drift, 8 devices, 5 rounds; a pool of
+             8, one ``alpha_combine`` kernel a round), then device-churn
+             at 16 devices for 3 rounds (4 spares, a pool of 20: two
+             kernels a round), counted; each round's phase walls from
+             the trace fields, the solves' inner steps from the trace
+             events; the kernel against its plain version on the last
+             round's own transfer inputs (rtol/atol 1e-5).
 5. serve   — llama3.2-1b at full width (16 layers, seeded weights drawn
              on the card) with ``attention_impl="kernel"``: prefill of
              (4, 2048) and (1, 9216) prompts (the second past the 8192
@@ -73,7 +92,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
 6. checks  — the disagreement kernel on the trained models' predictions
              and the transfer against their plain versions, and the GPU
              against the port on the CPU at a small size (the ST-LF
-             pieces, and the LM's and rwkv6's prefill and greedy tokens).
+             pieces, two small sync simulator runs with equal decisions,
+             and the LM's and rwkv6's prefill and greedy tokens).
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler window over
 each phase (the device's busy share, top kernels; the ST-LF kernels'
@@ -86,6 +106,7 @@ run took.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -156,6 +177,34 @@ SSM_MMA_KERNELS = ("ssm_chunk_state_kernel", "ssm_chunk_output_kernel")
 # the kernel against JAX's fp32 token-by-token recurrence: the decays
 # are rounded differently (exp of a cumsum against a product of exps)
 RECUR_TOL = dict(atol=1e-3, rtol=1e-4)
+
+
+FADA_KW = dict(iters=40, batch=16, lr=0.05)   # fada_alpha's defaults
+# FADA on the card against the CPU port on the same draws.  The
+# discriminators' SGD steps far past stability (a row's |f|^2 reaches
+# ~850 at lr 0.05), so float32 noise in the features (cuDNN's against
+# the CPU's: ~6e-7 of the largest entry) moves w.  Gaps: at most 2 rows
+# of a pair apart (measured: 0; noise ten times the measured one moves
+# 1 row).  w: within 1e-2 of its largest entry (measured up to 2.5e-3;
+# noise ten times the measured one: 3.1e-3).  Half the learning rate
+# moves both far past the bars (PERF.md §6).
+FADA_GAP_ROWS = 2
+FADA_W_TOL = 1e-2
+# the simulator's runs on the card: (scenario, devices, rounds); the
+# default run (8 devices, no spares: a pool of 8, the transfer's one
+# mma.sync kernel a round), then device-churn at 16 devices (4 spares: a
+# pool of 20, split + wgmma, two kernels a round)
+SIM_RUNS = [("channel-drift", 8, 5), ("device-churn", 16, 3)]
+SIM_TAGS = [f"{s}-n{n}-r{r}" for s, n, r in SIM_RUNS]
+# the small sync runs held GPU against CPU: (scenario, seed), each with
+# targets in some round under the port's seeds
+SMALL_SIM = [("channel-drift", 0), ("device-churn", 2)]
+SMALL_SIM_CFG = dict(devices=5, rounds=3, samples_per_device=40,
+                     train_iters=30, div_tau=1, div_T=3, solver_max_outer=4,
+                     solver_inner_steps=300, solver_inner_steps_warm=150)
+# RoundRecord fields that are decisions: GPU and CPU runs must agree
+SIM_DECISIONS = ("n_active", "n_sources", "n_targets", "transmissions",
+                 "events", "resolved", "warm", "resolve_reason")
 
 
 def log(msg: str) -> None:
@@ -646,7 +695,6 @@ def phase_serve(counted, report):
     agree through the whole stack's casts; the kernel itself is held
     element by element against its plain version on layer 0's q, k, v of
     each prompt (every query row, so also the causal mask and window)."""
-    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.serve import generate
@@ -1297,10 +1345,290 @@ def phase_main_path(ac, dg, counted, report):
     return launches, state, stlf
 
 
-def phase_profile(state, stlf, lm, rwkv_lm, report):
+def _cpu_copy(state):
+    """The RoundState's clients and parameters on the CPU."""
+    c = state.clients
+    clients = type(c)(**{f.name: getattr(c, f.name).cpu()
+                         for f in dataclasses.fields(c)})
+    return clients, {k: v.cpu() for k, v in state.params.items()}
+
+
+def phase_baselines(ac, counted, state, stlf, report):
+    """The paper's comparison matrix (``run_all_baselines``) on the main
+    path's full-size state, counted: ``alpha_combine`` runs once a method
+    (each ``evaluate_assignment`` mixes the 10 devices in one call);
+    FADA's columns sum to one at its targets; its gaps and weights, held
+    against the port on the CPU on the same draws, agree within the bars
+    below, and a planted fault (half the learning rate) breaks both."""
+    from repro_torch.fl import baselines as bl
+    from repro_torch.fl import cnn, run_all_baselines
+    from repro_torch.fl.divergence import pair_draws
+    from repro_torch.fl.round import column_normalize
+    from repro_torch.rng import split_seed
+
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    res = run_all_baselines(state, stlf, 1)
+    wall = time.perf_counter() - t0
+    launches = read_counts(counted)
+    # FADA's two calls again, alone, on the matrix's inputs and seeds
+    fada_s = []
+    for name, seed in zip(("FADA", "psi-FADA"), split_seed(1, 2)):
+        t0 = time.perf_counter()             # returns numpy: synchronized
+        again = bl.fada_alpha(res[name].psi, state.params, state.clients,
+                              seed)
+        fada_s.append(time.perf_counter() - t0)
+        again = column_normalize(again, res[name].psi,
+                                 energy_K=state.energy.K,
+                                 eps_hat=state.eps_hat)
+        if not np.array_equal(again, res[name].alpha):
+            raise AssertionError(f"{name}: alpha differs between two calls "
+                                 f"on the same inputs")
+    n = len(stlf.psi)
+    want = len(res) * ac._plan(n, n)[0]
+    for name, r in res.items():
+        log(f"[baselines] {name}: target_acc={r.target_acc:.4f} "
+            f"energy={r.energy:.6f} transmissions={r.transmissions} "
+            f"psi={r.psi.astype(int).tolist()}")
+    log(f"[baselines] matrix wall {wall:.3f} s, FADA's two calls timed "
+        f"alone {sum(fada_s):.3f} s ({sum(fada_s) / wall:.1%}); launches "
+        f"{launches} (alpha_combine: {want} wanted, one a method at "
+        f"T = {n})")
+    if launches["alpha_combine"] != want or any(
+            v for k, v in launches.items() if k != "alpha_combine"):
+        raise AssertionError(f"baselines: launches {launches}, "
+                             f"alpha_combine should be {want}")
+    for name in ("FADA", "psi-FADA"):
+        r = res[name]
+        tg = r.psi == 1.0
+        if not (tg.any() and np.allclose(r.alpha[:, tg].sum(0), 1.0)
+                and np.isfinite(r.alpha).all() and np.isfinite(r.energy)
+                and np.isfinite(r.per_device_acc).all()):
+            raise AssertionError(f"{name}: alpha columns, accuracies or "
+                                 f"energy invalid")
+
+    # FADA's gaps on the card against the CPU port, on the same draws
+    srcs, tgts = np.flatnonzero(stlf.psi == 0), np.flatnonzero(stlf.psi == 1)
+    si, ti = (a.ravel() for a in np.meshgrid(srcs, tgts, indexing="ij"))
+    counts = state.clients.counts.cpu().numpy()
+    draws = pair_draws(split_seed(3, len(si)), counts[si], counts[ti],
+                       steps=FADA_KW["iters"], batch=FADA_KW["batch"])
+    runs = {}
+    clients, params = _cpu_copy(state)
+    for dev, c, p, kw in (
+            ("cuda", state.clients, state.params, FADA_KW),
+            ("cpu", clients, params, FADA_KW),
+            ("fault", state.clients, state.params,
+             dict(FADA_KW, lr=FADA_KW["lr"] / 2))):
+        g, w, b = bl._domain_gap(p, c, si, ti, draws=draws, **kw)
+        runs[dev] = (g.cpu().numpy(), w.cpu(), b.cpu())
+    with torch.no_grad():                       # the sources' own rows
+        feats = {dev: cnn._features_stacked(
+            {k: v[torch.as_tensor(srcs, device=c.x.device)]
+             for k, v in p.items()},
+            c.x[torch.as_tensor(srcs, device=c.x.device)]).cpu()
+            for dev, c, p in (("cuda", state.clients, state.params),
+                              ("cpu", clients, params))}
+    row = 4.0 / (counts[si] + counts[ti])       # one row of each pair's gap
+    ref_g, ref_w, _ = runs["cpu"]
+
+    def apart(dev):
+        """(largest gap move in rows of its pair, max |dw| / max |w|)."""
+        g, w, _ = runs[dev]
+        return (float((np.abs(g - ref_g) / row).max()),
+                float((w - ref_w).abs().max() / ref_w.abs().max()))
+
+    seen = {dev: apart(dev) for dev in ("cuda", "fault")}
+    feat_rel = float((feats["cuda"] - feats["cpu"]).abs().max()
+                     / feats["cpu"].abs().max())
+    for dev, what in (("cuda", "GPU vs CPU"),
+                      ("fault", "planted fault (lr / 2) on the GPU vs CPU")):
+        log(f"[baselines] FADA {what}, {len(si)} pairs on the same draws: "
+            f"gaps {seen[dev][0]:.4g} rows apart at most (bar "
+            f"{FADA_GAP_ROWS} rows), w {seen[dev][1]:.3g} of max |w| (bar "
+            f"{FADA_W_TOL})")
+    log(f"[baselines] FADA features GPU vs CPU: {feat_rel:.3g} of the "
+        f"largest entry; gaps {np.round(runs['cuda'][0], 4).tolist()}")
+    if not (np.isfinite(runs["cuda"][0]).all()
+            and seen["cuda"][0] <= FADA_GAP_ROWS
+            and seen["cuda"][1] <= FADA_W_TOL):
+        raise AssertionError("FADA: the card's discriminators differ from "
+                             "the CPU port's")
+    if not (seen["fault"][0] > FADA_GAP_ROWS
+            and seen["fault"][1] > FADA_W_TOL):
+        raise AssertionError("FADA: the bars do not see a planted fault")
+    report["baselines"] = dict(
+        wall_s=wall, fada_s=fada_s, launches=launches,
+        methods={k: dict(target_acc=r.target_acc, energy=r.energy,
+                         transmissions=r.transmissions,
+                         psi=r.psi.tolist()) for k, r in res.items()},
+        fada_gpu_vs_cpu=dict(gap_rows=seen["cuda"][0], w_rel=seen["cuda"][1],
+                             features_rel=feat_rel),
+        fada_fault_lr_half=dict(gap_rows=seen["fault"][0],
+                                w_rel=seen["fault"][1]))
+
+
+def phase_sim(ac, counted, report, dev="cuda", runs=SIM_RUNS):
+    """The simulator's sync path through its CLI's run
+    (``repro_torch.sim.run.simulate``, what ``main`` runs) with
+    ``--trace``, counted: every
+    round's transfer launches ``alpha_combine`` (the kernels
+    ``alpha_combine_plan`` gives for the pool), and nothing else does;
+    then the kernel against its plain version on the last round's
+    transfer: the round's alpha on the final parameters (the targets'
+    rows, the only ones the mixture replaced, carry zero weight).
+    Prints each round's phases from the trace fields and the solves'
+    inner steps from the trace events."""
+    from repro_torch.nn.param import flatten_to_vector
+    from repro_torch.sim import run as sim_run
+    from repro_torch.sim.metrics import RoundRecord, read_jsonl
+
+    out_dir = ROOT / "build" / "sim"
+    fields = [f.name for f in dataclasses.fields(RoundRecord)]
+    out, engines = {}, {}
+    for scenario, n, rounds in runs:
+        tag = f"{scenario}-n{n}-r{rounds}"
+        log_path, trace_path = out_dir / f"{tag}.jsonl", \
+            out_dir / f"{tag}.trace.jsonl"
+        zero_counts(counted)
+        t0 = time.perf_counter()
+        eng, _ = sim_run.simulate([
+            "--scenario", scenario, "--devices", str(n), "--rounds",
+            str(rounds), "--out", str(log_path), "--trace-out",
+            str(trace_path), "--quiet", "--device", dev])
+        wall = time.perf_counter() - t0
+        launches = read_counts(counted)
+        rows = read_jsonl(str(log_path))
+        events = [json.loads(ln) for ln in open(trace_path)]
+        theta, alpha = eng.state.params, eng.state.alpha
+        engines[tag] = eng
+        pool = len(alpha)
+        per_call = ac._plan(pool, pool)[0]
+        want = rounds * per_call
+        solves = [e for e in events if e["phase"] == "solve"]
+        steps = sum(e["inner_steps"] for e in solves)
+        solve_s = sum(e["seconds"] for e in solves)
+        phases = {k: [r[k] for r in rows] for k in (
+            "wall_time_s", "train_wall_s", "div_wall_s",
+            "solver_wall_s", "transfer_wall_s", "eval_wall_s")}
+        for r in rows:
+            log(f"[sim] {tag} round {r['round']}: wall "
+                f"{r['wall_time_s']:.3f} s (train {r['train_wall_s']:.3f},"
+                f" divergence {r['div_wall_s']:.3f}, solve "
+                f"{r['solver_wall_s']:.3f}, transfer "
+                f"{r['transfer_wall_s']:.4f}, eval "
+                f"{r['eval_wall_s']:.4f}); active {r['n_active']}, "
+                f"sources {r['n_sources']}, targets {r['n_targets']}, "
+                f"resolve {r['resolve_reason']} "
+                f"({r['solver_iters']} outer), tgt_acc "
+                f"{r['mean_target_acc']:.4f}, energy {r['energy']:.6f}, "
+                f"events {r['events']}")
+        log(f"[sim] {tag}: {wall:.3f} s in main, pool {pool}; "
+            f"{len(solves)} re-solves, {steps} inner steps in "
+            f"{solve_s:.3f} s: {solve_s / max(steps, 1) * 1e3:.3f} ms "
+            f"per solver step; launches {launches} (alpha_combine: "
+            f"{rounds} rounds x {per_call} = {want} wanted)")
+        if launches["alpha_combine"] != want or any(
+                v for k, v in launches.items() if k != "alpha_combine"):
+            raise AssertionError(f"sim {tag}: launches {launches}, "
+                                 f"alpha_combine should be {want}")
+        if not (len(rows) == rounds
+                and all(list(r) == fields for r in rows)
+                and all(r["n_sources"] + r["n_targets"] == r["n_active"]
+                        and np.isfinite(r["energy"])
+                        and r["resolved"] == (r["resolve_reason"]
+                                              is not None)
+                        for r in rows)
+                and rows[0]["resolve_reason"] == "cold"
+                and all(r["train_wall_s"] > 0 for r in rows)):
+            raise AssertionError(f"sim {tag}: rows malformed")
+        # the kernel against its plain version on the last round's alpha
+        flat = flatten_to_vector(theta, lead=1).contiguous()
+        a = torch.as_tensor(alpha, dtype=torch.float32,
+                            device=flat.device)
+        kern = ac.alpha_combine(flat, a)
+        plain = ac.alpha_combine_plain(flat, a)
+        err = float((kern - plain).abs().max())
+        log(f"[sim] {tag}: alpha_combine on the last round's transfer "
+            f"({pool} x {pool}, P = {flat.shape[1]}) vs plain: max abs "
+            f"err {err:.3g}")
+        if not torch.allclose(kern, plain, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"sim {tag}: alpha_combine differs "
+                                 f"from its plain version by {err}")
+        times = {}
+        if flat.is_cuda:        # the wrapper at the round's own shape
+            times = dict(
+                ms=cuda_ms(lambda: ac.alpha_combine(flat, a), 50),
+                plain_ms=cuda_ms(lambda: ac.alpha_combine_plain(flat, a),
+                                 50),
+                library_ms=cuda_ms(lambda: torch.matmul(a.t(), flat),
+                                   50))
+            times["bound_ms"], times["bound_by"] = bound(
+                4 * (flat.numel() + a.numel() + pool * flat.shape[1]),
+                2 * pool * pool * flat.shape[1])
+            log(f"[sim] {tag}: alpha_combine {pool} x {pool} x "
+                f"{flat.shape[1]}: " + ", ".join(
+                    f"{k} {v:.4f}" if isinstance(v, float) else
+                    f"{k} {v}" for k, v in times.items()))
+        out[tag] = dict(wall_s=wall, pool=pool, launches=launches,
+                        alpha_combine=times,
+                        kernels_per_round=per_call, resolves=len(solves),
+                        inner_steps=steps, solve_s=solve_s,
+                        ms_per_solver_step=solve_s / max(steps, 1) * 1e3,
+                        phases=phases, max_abs_err=err,
+                        n_targets=[r["n_targets"] for r in rows])
+    report["sim"] = out
+    return out, engines
+
+
+def phase_small_sim(report, devs=("cuda", "cpu")):
+    """Small sync runs on the GPU against the port on the CPU (which the
+    CPU tests hold against the JAX package), on the port's own seeds:
+    the decisions equal, the floats within the bars below."""
+    from repro_torch.sim import SimConfig, SimulationEngine
+    out = {}
+    for scenario, seed in SMALL_SIM:
+        a, b = (SimulationEngine(
+            SimConfig(scenario=scenario, seed=seed, **SMALL_SIM_CFG),
+            device=dev).run() for dev in devs)
+        if not any(r["n_targets"] for r in b):
+            raise AssertionError(f"small sim {scenario}: no targets")
+        worst = {}
+        for ra, rb in zip(a, b):
+            for k in SIM_DECISIONS:
+                if ra[k] != rb[k]:
+                    raise AssertionError(
+                        f"small sim {scenario} round {ra['round']}: {k} "
+                        f"{ra[k]} on the GPU, {rb[k]} on the CPU")
+            # an accuracy may move by one prediction of a 40-row device;
+            # the rest are float32 noise through the solver (rtol 1e-3)
+            for k, tol in (("mean_target_acc", 1.0 / 40),
+                           ("mean_source_acc", 1.0 / 40)):
+                d = abs(ra[k] - rb[k]) if np.isfinite(rb[k]) else 0.0
+                if not (np.isnan(ra[k]) == np.isnan(rb[k]) and d <= tol):
+                    raise AssertionError(f"small sim {scenario}: {k}")
+                worst[k] = max(worst.get(k, 0.0), d)
+            for k in ("drift", "energy", "energy_cum", "link_churn"):
+                d = abs(ra[k] - rb[k])
+                if d > 1e-3 * abs(rb[k]) + 1e-6:
+                    raise AssertionError(f"small sim {scenario} round "
+                                         f"{ra['round']}: {k} {ra[k]} vs "
+                                         f"{rb[k]}")
+                worst[k] = max(worst.get(k, 0.0), d)
+        log(f"[small] sim {scenario} (seed {seed}, {len(a)} rounds): "
+            f"decisions equal on GPU and CPU "
+            f"(targets {[r['n_targets'] for r in a]}); max |d| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+        out[scenario] = worst
+    report["small_sim"] = out
+
+
+def phase_profile(state, stlf, lm, rwkv_lm, sim_engines, report):
     """``--profile`` only: torch.profiler over short windows of each phase
-    on the main path's state and of the two serve paths (``lm`` and
-    ``rwkv_lm`` = model, params); the device's busy share of each window
+    on the main path's state, of the two serve paths (``lm`` and
+    ``rwkv_lm`` = model, params) and of one more round of each simulator
+    run of ``[sim]`` (its engine carried on: a drift round re-solves warm
+    at the run's own settings); the device's busy share of each window
     (kernel time summed over wall time) and its top kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.problem import STLFProblem
@@ -1364,6 +1692,10 @@ def phase_profile(state, stlf, lm, rwkv_lm, report):
     windows["rwkv_prefill_4x2048"] = lambda: r_model.prefill(
         r_params, {"tokens": r_toks})
     windows["rwkv_decode_10_steps_b4"] = rwkv_decode_10
+    # the default run only: a churn round may re-solve at the full cold
+    # budget, which would make a window of 10^6 kernel records
+    eng = sim_engines[SIM_TAGS[0]]
+    windows[f"sim_round_{SIM_TAGS[0]}"] = lambda: eng.step(eng.state.round)
     out = {}
     for name, fn in windows.items():
         fn()
@@ -1436,7 +1768,6 @@ def phase_small_lm():
     """The LM on the GPU (through the flash kernel) against the port on
     the CPU (its plain version; the CPU tests hold that against the JAX
     package), in float32 at 2 layers, d_model 128."""
-    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models.api import build_model
@@ -1467,7 +1798,6 @@ def phase_small_rwkv():
     """rwkv6 on the GPU (through ``ssm_scan``) against the port on the CPU
     (its plain version; the CPU tests hold that against the JAX package),
     in float32 at ``reduced()`` (2 layers, d_model 256, chunk 32)."""
-    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models.api import build_model
@@ -1553,6 +1883,10 @@ def main() -> int:
 
     # 4. main path at full size, counted
     launches, state, stlf = phase_main_path(ac, dg, counted, report)
+    # 4b. the comparison matrix on that state, counted
+    phase_baselines(ac, counted, state, stlf, report)
+    # 4c. the simulator's sync path through its CLI, counted
+    sim, sim_engines = phase_sim(ac, counted, report)
 
     # 5. the serve path at full width, counted
     serve_launches, model, params = phase_serve(counted, report)
@@ -1566,24 +1900,37 @@ def main() -> int:
 
     # 6. GPU against the CPU port on small inputs
     phase_small_reference()
+    phase_small_sim(report)
     phase_small_lm()
     phase_small_rwkv()
     if "--profile" in sys.argv[1:]:
         phase_profile(state, stlf, (model, params),
-                      (rwkv_model, rwkv_params), report)
+                      (rwkv_model, rwkv_params), sim_engines, report)
 
+    paths = {"alpha_combine": "ST-LF round (prepare_round, run_stlf)",
+             "disagreement": "ST-LF round (prepare_round, run_stlf)",
+             "flash_attention": f"{LM_ARCH} prefills {PREFILLS}",
+             "ssm_scan": f"{RWKV_ARCH} prefills {RWKV_PREFILLS}"}
     kernels = []
     for name, rs in rows.items():
         main = rs[0]                # the main path's shape comes first
         kernels.append(dict(
             name=name, route="cuda", **KERNEL_META[name],
-            launches=launches[name],
+            launches=launches[name], launches_path=paths[name],
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"]))
         if "device_us" in main:     # the CUDA kernels behind the wrapper
             kernels[-1]["cuda_kernels"] = main["device_us"]
+    # alpha_combine's other paths: the comparison matrix and the sim runs
+    ac_row = next(k for k in kernels if k["name"] == "alpha_combine")
+    ac_row["launches_by_path"] = dict(
+        {"ST-LF round": launches["alpha_combine"],
+         "run_all_baselines": report["baselines"]["launches"][
+             "alpha_combine"]},
+        **{f"sim {tag}": r["launches"]["alpha_combine"]
+           for tag, r in sim.items()})
     log("[report] " + json.dumps(report))
     log(smi)
     log(json.dumps({"kernels": kernels}))

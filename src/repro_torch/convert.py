@@ -30,6 +30,16 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
+def params_max_abs_diff(params: Mapping[str, torch.Tensor],
+                        tree: Mapping[str, np.ndarray]) -> Dict[str, float]:
+    """Per leaf, the largest absolute difference between the port's
+    (stacked) parameters and a dict of numpy arrays in JAX's layout, e.g.
+    the reference simulator's ``state.params`` after its last round."""
+    return {k: float(np.max(np.abs(
+        v.detach().cpu().double().numpy() - np.asarray(tree[k], float))))
+        for k, v in params.items()}
+
+
 def clients_from_numpy(clients, device: DeviceLike = None) -> StackedClients:
     """Any object with the fields of ``repro.fl.client.StackedClients``
     (arrays convertible by ``np.asarray``) -> the port's StackedClients."""

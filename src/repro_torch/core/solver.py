@@ -59,6 +59,9 @@ class SolverResult:
     # externally-built results): program packing vs the whole solve.
     pack_time_s: float = 0.0
     solve_time_s: float = 0.0
+    # Adam steps the inner loops ran, over every outer iteration (fewer
+    # than outer_iters * inner_steps when inner_tol stops a loop early)
+    inner_steps: int = 0
 
 
 # ------------------------------------------------------- structured form
@@ -206,7 +209,8 @@ def _adam_loop(loss, z0, steps, lo, hi, rho, inner_tol, chunk):
     less than ``inner_tol`` (inf-norm, log space) — inner_tol <= 0
     always runs the full ``steps`` budget.  ``loss(z, r)`` supplies the
     objective + r-weighted penalty.  The step's scalars (penalty weight
-    r, bias corrections) are computed in float32 as in the reference."""
+    r, bias corrections) are computed in float32 as in the reference.
+    Returns (z, Adam steps run)."""
     f32 = np.float32
     lr = 0.02
     b1, b2, eps = 0.9, 0.999, 1e-8
@@ -230,24 +234,25 @@ def _adam_loop(loss, z0, steps, lo, hi, rho, inner_tol, chunk):
                                 lo, hi)
             t += 1
         if t >= steps:
-            return z
+            return z, t
         if inner_tol > 0.0:
             with torch.no_grad():
                 if float(torch.max(torch.abs(z - z_chunk))) <= inner_tol:
-                    return z
+                    return z, t
 
 
 def _inner_solve_structured(sp: StructuredProgram, z0, steps, lo, hi, rho,
                             inner_tol, chunk):
-    """One convexified inner solve: (z, objective, max violation)."""
+    """One convexified inner solve: (z, objective, max violation, Adam
+    steps run)."""
     with torch.no_grad():
         aff = _structured_affine(sp, z0)
-    z = _adam_loop(lambda zz, r: _structured_loss(sp, aff, zz, r),
+    z, ran = _adam_loop(lambda zz, r: _structured_loss(sp, aff, zz, r),
                    z0, steps, lo, hi, rho, inner_tol, chunk)
     with torch.no_grad():
         max_viol = torch.max(torch.stack(
             [torch.max(v) for v in _structured_violations(sp, aff, z)]))
-        return z, _structured_objective(sp, aff, z), max_viol
+        return z, _structured_objective(sp, aff, z), max_viol, ran
 
 
 # ------------------------------------------------------------- polish
@@ -406,10 +411,12 @@ def solve_stlf(prob: STLFProblem, *, max_outer: int = 12,
     converged = False
     it = 0
     dec = np.concatenate([idx.psi, idx.alpha.ravel()])
+    steps_run = 0
     for it in range(max_outer):
-        z_new, obj, max_viol = _inner_solve_structured(
+        z_new, obj, max_viol, ran = _inner_solve_structured(
             prog, torch.as_tensor(z, **f32), int(inner_steps), lo_t, hi_t,
             rho, float(inner_tol), chunk)
+        steps_run += ran
         z_new = z_new.cpu().numpy()
         trace.append(float(obj))
         step = float(np.max(np.abs(np.exp(z_new[dec]) - np.exp(z[dec]))))
@@ -459,4 +466,4 @@ def solve_stlf(prob: STLFProblem, *, max_outer: int = 12,
         objective_parts=prob.objective(psi, alpha),
         converged=converged, outer_iters=it + 1, x_relaxed=x,
         pack_time_s=pack_time,
-        solve_time_s=time.perf_counter() - t_solve)
+        solve_time_s=time.perf_counter() - t_solve, inner_steps=steps_run)

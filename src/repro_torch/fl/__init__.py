@@ -7,7 +7,7 @@ from repro_torch.fl.divergence import (  # noqa: F401
 )
 from repro_torch.fl.round import (  # noqa: F401
     MethodResult, RoundState, evaluate_assignment, make_bounds,
-    prepare_round, run_stlf, train_local,
+    prepare_round, run_all_baselines, run_stlf, train_local,
 )
 from repro_torch.fl.transfer import (  # noqa: F401
     apply_transfer, column_normalize, combine_models,

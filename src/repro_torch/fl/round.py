@@ -5,14 +5,15 @@ any (psi, alpha) assignment.
 unless the caller passes "cpu"); ``run_stlf`` and ``evaluate_assignment``
 run where the RoundState lives.  Seeds replace the reference's PRNG keys;
 ``prepare_round``'s ``params0`` / ``train_draws`` / ``div_h0`` /
-``div_draws`` inject an initialization and row draws instead (the parity
-tests pass the reference's).
+``div_draws`` and ``run_all_baselines``' ``fada_draws`` inject an
+initialization and row draws instead (the parity tests pass the
+reference's).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +24,7 @@ from repro_torch.core.problem import STLFProblem
 from repro_torch.core.solver import SolverResult, solve_stlf
 from repro_torch.data.partition import DeviceData
 from repro_torch.device import DeviceLike
+from repro_torch.fl import baselines as bl
 from repro_torch.fl.client import (StackedClients, empirical_errors,
                                    init_client_params, stack_clients,
                                    train_sources, true_accuracies)
@@ -131,3 +133,44 @@ def run_stlf(state: RoundState, *, phi_s: float = 1.0, phi_t: float = 5.0,
                        phi_s=phi_s, phi_t=phi_t, phi_e=phi_e)
     res = solve_stlf(prob, device=state.clients.device, **solver_kw)
     return evaluate_assignment(state, "ST-LF", res.psi, res.alpha, res)
+
+
+def run_all_baselines(state: RoundState, stlf: MethodResult, key: int,
+                      seed: int = 0, *,
+                      fada_draws: Optional[Sequence[torch.Tensor]] = None
+                      ) -> Dict[str, MethodResult]:
+    """Evaluate the four alpha-baselines (on ST-LF's psi) and the four
+    psi-baselines, exactly the paper's comparison matrix.  ``key`` is
+    split into the two FADA calls' seeds, where the reference splits its
+    PRNG key; ``fada_draws`` (FADA's, then psi-FADA's row draws) replaces
+    them."""
+    rng = np.random.default_rng(seed)
+    psi = stlf.psi
+    out: Dict[str, MethodResult] = {}
+
+    k1, k2 = split_seed(key, 2)
+    d1, d2 = fada_draws if fada_draws is not None else (None, None)
+    # ---- alpha-baselines (ST-LF's psi)
+    out["Rnd-alpha"] = evaluate_assignment(
+        state, "Rnd-alpha", psi, bl.rnd_alpha(psi, rng))
+    out["FedAvg"] = evaluate_assignment(
+        state, "FedAvg", psi, bl.fedavg_alpha(psi, state.clients))
+    out["FADA"] = evaluate_assignment(
+        state, "FADA", psi,
+        bl.fada_alpha(psi, state.params, state.clients, k1, draws=d1))
+    out["AvgD"] = evaluate_assignment(
+        state, "AvgD", psi, bl.avg_degree_alpha(psi, stlf.alpha, rng))
+
+    # ---- psi-baselines
+    rpsi = bl.random_psi(len(psi), rng)
+    out["Rnd-psi"] = evaluate_assignment(
+        state, "Rnd-psi", rpsi, bl.rnd_alpha(rpsi, rng))
+    hpsi = bl.heuristic_psi(state.clients)
+    out["psi-FedAvg"] = evaluate_assignment(
+        state, "psi-FedAvg", hpsi, bl.fedavg_alpha(hpsi, state.clients))
+    out["psi-FADA"] = evaluate_assignment(
+        state, "psi-FADA", hpsi,
+        bl.fada_alpha(hpsi, state.params, state.clients, k2, draws=d2))
+    out["SM"] = evaluate_assignment(
+        state, "SM", psi, bl.single_matching_alpha(psi, state.div_hat))
+    return out

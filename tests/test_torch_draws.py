@@ -112,3 +112,54 @@ def test_pair_draws_are_the_references():
     np.testing.assert_array_equal(mine, ref)
     assert (mine[:, :, 0] < counts[pi, None, None]).all()
     assert (mine[:, :, 1] < counts[pj, None, None]).all()
+
+
+class JaxSimDraws:
+    """The draws ``repro.sim``'s sync executor makes inside a round,
+    recomputed from the reference engine's key (``split(PRNGKey(seed))``'s
+    second half): a draws provider for ``repro_torch.sim.SimulationEngine``.
+    Round t trains on ``split(fold_in(key, t), P)`` and bootstraps
+    Algorithm 1 from ``fold_in(fold_in(key, t), 1)``."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        _, self.key = jax.random.split(jax.random.PRNGKey(cfg.seed))
+
+    def train(self, t, clients):
+        keys = jax.random.split(jax.random.fold_in(self.key, t),
+                                clients.n_devices)
+        return jax_train_draws(clients, keys, iters=self.cfg.train_iters,
+                               batch=self.cfg.batch)
+
+    def divergence(self, t, pairs, clients):
+        from repro_torch.convert import params_from_jax
+        k_div = jax.random.fold_in(jax.random.fold_in(self.key, t), 1)
+        k_pairs, init_key = jax.random.split(k_div)
+        h0 = jax.tree_util.tree_map(np.asarray,
+                                    jcnn.cnn_init(init_key, num_classes=2))
+        pi = np.minimum(pairs[:, 0], pairs[:, 1])
+        pj = np.maximum(pairs[:, 0], pairs[:, 1])
+        keys = jax_pair_keys(k_pairs, len(pi))
+        rows = jax_pair_draws(clients.counts.cpu().numpy(), pi, pj, keys,
+                              steps=self.cfg.div_tau * self.cfg.div_T,
+                              batch=self.cfg.batch)
+        return params_from_jax(h0, clients.device), rows
+
+    def refresh(self, pairs, clients):
+        """The executor's content-addressed refresh: pair (i, j) draws
+        from ``fold_in(fold_in(fold_in(PRNGKey(seed), 2**20), min), max)``
+        and every refresh shares the init ``fold_in(PRNGKey(seed),
+        2**21)``."""
+        from repro_torch.convert import params_from_jax
+        root = jax.random.PRNGKey(self.cfg.seed)
+        base = jax.random.fold_in(root, 2 ** 20)
+        h0 = jax.tree_util.tree_map(np.asarray, jcnn.cnn_init(
+            jax.random.fold_in(root, 2 ** 21), num_classes=2))
+        pi = np.minimum(pairs[:, 0], pairs[:, 1])
+        pj = np.maximum(pairs[:, 0], pairs[:, 1])
+        keys = jax.vmap(lambda i, j: jax.random.fold_in(
+            jax.random.fold_in(base, i), j))(jnp.asarray(pi), jnp.asarray(pj))
+        rows = jax_pair_draws(clients.counts.cpu().numpy(), pi, pj, keys,
+                              steps=self.cfg.div_tau * self.cfg.div_T,
+                              batch=self.cfg.batch)
+        return params_from_jax(h0, clients.device), rows

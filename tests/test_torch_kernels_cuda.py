@@ -164,6 +164,59 @@ def test_transfer_goes_through_the_kernel(cuda):
         assert torch.equal(out[k][0], v[0])
 
 
+# the simulator's transfer: a pool of 8 (the default run; one mma.sync
+# kernel a round) and of 20 (8 devices + 12 spares; split + wgmma, two)
+@pytest.mark.cuda
+@pytest.mark.parametrize("spares", [0, 12])
+def test_sim_transfer_goes_through_the_kernel(cuda, spares):
+    from repro_torch.nn.param import flatten_to_vector
+    from repro_torch.sim import SimConfig, SimulationEngine
+    eng = SimulationEngine(SimConfig(
+        scenario="static", devices=8, spares=spares, rounds=1,
+        samples_per_device=40, train_iters=30, div_tau=1, div_T=3,
+        solver_max_outer=2, solver_inner_steps=100), device=cuda)
+    pool = 8 + spares
+    per_round = ac._plan(pool, pool)[0]
+    assert per_round == (1 if pool <= 16 else 2)
+    before = ac.alpha_combine.launches
+    eng.run()
+    assert ac.alpha_combine.launches == before + per_round
+    st = eng.state
+    flat = flatten_to_vector(st.params, lead=1).contiguous()
+    # the round's own alpha, and a dense one on the same parameters
+    for alpha in (st.alpha, _ac_inputs(pool, pool, 1)[1]):
+        a = torch.as_tensor(alpha, dtype=torch.float32, device=cuda)
+        torch.testing.assert_close(ac.alpha_combine(flat, a),
+                                   ac.alpha_combine_plain(flat, a),
+                                   rtol=1e-5, atol=1e-5)
+    mixed = eng.pool.transfer(st.params, st.alpha, st.psi)
+    assert ac.alpha_combine.launches == before + 4 * per_round
+    tg = st.psi == 1.0
+    for k, v in mixed.items():
+        assert torch.equal(v[~torch.as_tensor(tg)], st.params[k][
+            ~torch.as_tensor(tg)])                 # sources keep their own
+
+
+# one small sync run on the card against the port on the CPU, on the
+# port's own seeds: every decision equal (chip_smoke.py's [small] sim)
+@pytest.mark.cuda
+def test_sim_run_on_card_matches_cpu(cuda):
+    from repro_torch.sim import SimConfig, SimulationEngine
+    cfg = dict(scenario="channel-drift", devices=5, rounds=3,
+               samples_per_device=40, train_iters=30, div_tau=1, div_T=3,
+               solver_max_outer=4, solver_inner_steps=300,
+               solver_inner_steps_warm=150)
+    gpu, cpu = (SimulationEngine(SimConfig(**cfg), device=d).run()
+                for d in (cuda, "cpu"))
+    assert any(r["n_targets"] for r in cpu)
+    for a, b in zip(gpu, cpu):
+        for k in ("n_active", "n_sources", "n_targets", "transmissions",
+                  "events", "resolved", "warm", "resolve_reason"):
+            assert a[k] == b[k], (a["round"], k)
+        np.testing.assert_allclose(a["energy"], b["energy"], rtol=1e-3,
+                                   atol=1e-6)
+
+
 # tests/test_kernels.py's flash grid: (b, sq, sk, h, kv, d, causal, window),
 # with a GQA case, a fully masked start (sq > sk), fewer queries than a
 # tile behind a longer history, and the serve path's long-prompt window;

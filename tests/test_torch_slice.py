@@ -2,6 +2,7 @@
 on the port against ``repro.fl.round`` on the same network, with the
 reference's initialization and row draws injected; plus the port's
 import boundary and its refusal to fall back to the CPU."""
+import os
 import subprocess
 import sys
 
@@ -77,6 +78,10 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) > 20, mods\n"
+        "need = {'repro_torch.sim.run', 'repro_torch.sim.engine', "
+        "'repro_torch.sim.executors', 'repro_torch.sim.shard.pool', "
+        "'repro_torch.sim.trace.events', 'repro_torch.stlf_federated'}\n"
+        "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(len(mods), bad)\n"
@@ -93,6 +98,13 @@ def test_entry_points_refuse_silent_cpu():
                          seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tround.prepare_round(devs, 0, train_iters=1)
-    from repro_torch import quickstart
+    from repro_torch import quickstart, stlf_federated
     with pytest.raises(RuntimeError, match="no CUDA device"):
         quickstart.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stlf_federated.main([])
+    from repro_torch.sim import SimConfig, SimulationEngine, run
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SimulationEngine(SimConfig(devices=2, samples_per_device=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main(["--rounds", "0", "--quiet", "--out", os.devnull])

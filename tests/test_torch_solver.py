@@ -78,6 +78,7 @@ def test_solve_stlf_same_decisions(seed):
     np.testing.assert_allclose(a.psi_relaxed, b.psi_relaxed, atol=1e-3)
     assert a.outer_iters == b.outer_iters
     assert a.pack_time_s >= 0.0 and a.solve_time_s > 0.0
+    assert a.inner_steps == a.outer_iters * kw["inner_steps"]  # no tol
 
 
 @pytest.mark.parametrize("inner_tol", [0.0, 1e-4])
@@ -100,14 +101,14 @@ def test_adam_loop_schedule_and_early_stop(inner_tol):
 
     z0 = np.zeros(7, np.float32)
     steps, chunk = 1280, 64
-    out = solver._adam_loop(loss_t, torch.as_tensor(z0), steps,
-                            torch.as_tensor(lo), torch.as_tensor(hi), 2.0,
-                            inner_tol, chunk)
+    out, ran = solver._adam_loop(loss_t, torch.as_tensor(z0), steps,
+                                 torch.as_tensor(lo), torch.as_tensor(hi),
+                                 2.0, inner_tol, chunk)
     ref = jax.jit(lambda z: jsolver._adam_loop(
         loss_j, z, steps, jnp.asarray(lo), jnp.asarray(hi), 2.0,
         inner_tol, chunk))(jnp.asarray(z0))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
-    assert len(calls) % chunk == 0
+    assert len(calls) % chunk == 0 and ran == len(calls)
     assert (len(calls) < steps) == (inner_tol > 0.0)
 
 
