@@ -69,6 +69,26 @@ Phases, each of which raises on failure (the script then exits nonzero):
              the trace fields, the solves' inner steps from the trace
              events; the kernel against its plain version on the last
              round's own transfer inputs (rtol/atol 1e-5).
+4d. sim-async — the simulator's async, drift and fault/resume paths
+             through the same CLI run (``--trace``), counted:
+             async-gossip (8 devices, the CLI's async defaults, 12
+             ticks) and feature-drift-async (8 devices, 8 ticks), where
+             no kernel of the port runs (every count stays 0); each
+             tick's trained devices, gossip pairs, re-solve reason,
+             dirty backlog and re-estimates (within the budget) and
+             phase walls; a cost model fitted from the first run's own
+             trace and the autotuner's choice under it (its knobs must
+             reproduce its predicted seconds and keep its guardrails).
+             Then 'faulty'
+             (sync, 8 devices, 5 rounds): uninterrupted, then with
+             ``--checkpoint-every 1 --kill-after 2`` in a child process
+             that SIGKILLs itself and ``--resume`` to the end, counted
+             (``alpha_combine`` as ``alpha_combine_plan`` gives it, each
+             round run); ``restore_run`` must put back bit for bit the
+             arrays ``save_run`` wrote; whether two uninterrupted card
+             runs agree, and the resumed rounds with the uninterrupted
+             ones, on the decisions; the kernel against its plain
+             version on the last round's transfer inputs.
 5. serve   — llama3.2-1b at full width (16 layers, seeded weights drawn
              on the card) with ``attention_impl="kernel"``: prefill of
              (4, 2048) and (1, 9216) prompts (the second past the 8192
@@ -92,7 +112,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
 6. checks  — the disagreement kernel on the trained models' predictions
              and the transfer against their plain versions, and the GPU
              against the port on the CPU at a small size (the ST-LF
-             pieces, two small sync simulator runs with equal decisions,
+             pieces, four small simulator runs with equal decisions:
+             channel-drift, device-churn, async-gossip and feature-drift,
              and the LM's and rwkv6's prefill and greedy tokens).
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler window over
@@ -109,6 +130,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -196,15 +218,29 @@ FADA_W_TOL = 1e-2
 # pool of 20, split + wgmma, two kernels a round)
 SIM_RUNS = [("channel-drift", 8, 5), ("device-churn", 16, 3)]
 SIM_TAGS = [f"{s}-n{n}-r{r}" for s, n, r in SIM_RUNS]
-# the small sync runs held GPU against CPU: (scenario, seed), each with
+# the simulator's async and drift runs on the card, through the CLI with
+# its defaults (8 devices, 100 samples, 30 SGD steps, solver 8 x 600 cold
+# / 150 warm, clocks (1, 2, 4), n_active // 4 gossip pairs): (scenario,
+# engine, devices, ticks), ticks cut for the script's time limit
+SIM_ASYNC_RUNS = [("async-gossip", "async-gossip", 8, 12),
+                  ("feature-drift-async", "async-gossip", 8, 8)]
+# the fault/resume run: sync 'faulty' at the CLI's fault defaults,
+# (devices, rounds, the round after which the first run is SIGKILLed)
+SIM_FAULTY = (8, 5, 2)
+# the small runs held GPU against CPU: (scenario, engine, seed), each with
 # targets in some round under the port's seeds
-SMALL_SIM = [("channel-drift", 0), ("device-churn", 2)]
+SMALL_SIM = [("channel-drift", "sync", 0), ("device-churn", "sync", 2),
+             ("async-gossip", "async-gossip", 3),
+             ("feature-drift", "sync", 2)]
 SMALL_SIM_CFG = dict(devices=5, rounds=3, samples_per_device=40,
                      train_iters=30, div_tau=1, div_T=3, solver_max_outer=4,
                      solver_inner_steps=300, solver_inner_steps_warm=150)
 # RoundRecord fields that are decisions: GPU and CPU runs must agree
 SIM_DECISIONS = ("n_active", "n_sources", "n_targets", "transmissions",
-                 "events", "resolved", "warm", "resolve_reason")
+                 "events", "resolved", "warm", "resolve_reason",
+                 "n_trained", "trained", "gossip", "n_drifted",
+                 "n_dirty_pairs", "n_reestimated", "n_faults",
+                 "n_recovered")
 
 
 def log(msg: str) -> None:
@@ -1468,6 +1504,31 @@ def phase_baselines(ac, counted, state, stlf, report):
                                 w_rel=seen["fault"][1]))
 
 
+def _wall_line(r):
+    """A row's phase walls from the trace fields (async: the gossip
+    exchange is the transfer phase)."""
+    return (f"wall {r['wall_time_s']:.3f} s (train {r['train_wall_s']:.3f}, "
+            f"divergence {r['div_wall_s']:.3f}, solve "
+            f"{r['solver_wall_s']:.3f}, transfer {r['transfer_wall_s']:.4f},"
+            f" eval {r['eval_wall_s']:.4f}, checkpoint "
+            f"{r['ckpt_wall_s']:.4f})")
+
+
+def _check_rows(tag, rows, rounds):
+    from repro_torch.sim.metrics import RoundRecord
+    fields = [f.name for f in dataclasses.fields(RoundRecord)]
+    if not (len(rows) == rounds
+            and [r["round"] for r in rows] == list(range(rounds))
+            and all(list(r) == fields for r in rows)
+            and all(r["n_sources"] + r["n_targets"] == r["n_active"]
+                    and np.isfinite(r["energy"])
+                    and r["resolved"] == (r["resolve_reason"] is not None)
+                    for r in rows)
+            and rows[0]["resolve_reason"] == "cold"
+            and all(r["train_wall_s"] > 0 for r in rows)):
+        raise AssertionError(f"sim {tag}: rows malformed")
+
+
 def phase_sim(ac, counted, report, dev="cuda", runs=SIM_RUNS):
     """The simulator's sync path through its CLI's run
     (``repro_torch.sim.run.simulate``, what ``main`` runs) with
@@ -1481,10 +1542,9 @@ def phase_sim(ac, counted, report, dev="cuda", runs=SIM_RUNS):
     inner steps from the trace events."""
     from repro_torch.nn.param import flatten_to_vector
     from repro_torch.sim import run as sim_run
-    from repro_torch.sim.metrics import RoundRecord, read_jsonl
+    from repro_torch.sim.metrics import read_jsonl
 
     out_dir = ROOT / "build" / "sim"
-    fields = [f.name for f in dataclasses.fields(RoundRecord)]
     out, engines = {}, {}
     for scenario, n, rounds in runs:
         tag = f"{scenario}-n{n}-r{rounds}"
@@ -1532,16 +1592,7 @@ def phase_sim(ac, counted, report, dev="cuda", runs=SIM_RUNS):
                 v for k, v in launches.items() if k != "alpha_combine"):
             raise AssertionError(f"sim {tag}: launches {launches}, "
                                  f"alpha_combine should be {want}")
-        if not (len(rows) == rounds
-                and all(list(r) == fields for r in rows)
-                and all(r["n_sources"] + r["n_targets"] == r["n_active"]
-                        and np.isfinite(r["energy"])
-                        and r["resolved"] == (r["resolve_reason"]
-                                              is not None)
-                        for r in rows)
-                and rows[0]["resolve_reason"] == "cold"
-                and all(r["train_wall_s"] > 0 for r in rows)):
-            raise AssertionError(f"sim {tag}: rows malformed")
+        _check_rows(tag, rows, rounds)
         # the kernel against its plain version on the last round's alpha
         flat = flatten_to_vector(theta, lead=1).contiguous()
         a = torch.as_tensor(alpha, dtype=torch.float32,
@@ -1581,16 +1632,310 @@ def phase_sim(ac, counted, report, dev="cuda", runs=SIM_RUNS):
     return out, engines
 
 
+def phase_sim_async(counted, report, dev="cuda", runs=SIM_ASYNC_RUNS):
+    """The async-gossip executor through the CLI's run with ``--trace``,
+    counted: no kernel of the port is on this path (training and
+    Algorithm 1 are stacked PyTorch ops, the gossip exchange indexed row
+    writes), so every count must stay 0.  Prints each tick's trained
+    devices, gossip pairs, re-solve reason, dirty backlog and phase
+    walls; the drift run must drift, re-measure and hold its budget
+    (n_active pairs a tick).  Then a cost model fitted from the first
+    run's own trace, and the autotuner's choice under it."""
+    from repro_torch.sim import run as sim_run
+    from repro_torch.sim.metrics import read_jsonl
+    from repro_torch.sim.trace.model import CostModel, read_trace
+    from repro_torch.sim.trace.replay import predict_run
+    from repro_torch.sim.trace.tune import (PATIENCE_MAX, PATIENCE_MIN,
+                                            autotune, min_budget)
+
+    out_dir = ROOT / "build" / "sim"
+    out, traces = {}, {}
+    for scenario, engine, n, ticks in runs:
+        tag = f"{scenario}-n{n}-r{ticks}"
+        log_path, trace_path = out_dir / f"{tag}.jsonl", \
+            out_dir / f"{tag}.trace.jsonl"
+        zero_counts(counted)
+        t0 = time.perf_counter()
+        eng, _ = sim_run.simulate([
+            "--scenario", scenario, "--engine", engine, "--devices", str(n),
+            "--rounds", str(ticks), "--out", str(log_path), "--trace-out",
+            str(trace_path), "--quiet", "--device", dev])
+        wall = time.perf_counter() - t0
+        launches = read_counts(counted)
+        rows = read_jsonl(str(log_path))
+        events = read_trace(str(trace_path))
+        traces[tag] = (eng.cfg, events, rows)
+        for r in rows:
+            log(f"[sim-async] {tag} tick {r['round']}: trained "
+                f"{r['n_trained']} {r['trained']}, gossip "
+                f"{len(r['gossip'])} {r['gossip']}, exchanges "
+                f"{r['transmissions']}, resolve {r['resolve_reason']} "
+                f"({r['solver_iters']} outer, age {r['solve_age']}), "
+                f"dirty {r['n_dirty_pairs']}, re-estimated "
+                f"{r['n_reestimated']}, drifted {r['n_drifted']}, "
+                f"staleness {r['mean_staleness']:.2f}; {_wall_line(r)}; "
+                f"targets {r['n_targets']}, tgt_acc "
+                f"{r['mean_target_acc']:.4f}")
+        solves = [e for e in events if e["phase"] == "solve"]
+        steps = sum(e["inner_steps"] for e in solves)
+        solve_s = sum(e["seconds"] for e in solves)
+        lanes = sorted({e.get("lanes") for e in events
+                        if e["phase"] == "train"} - {None})
+        log(f"[sim-async] {tag}: {wall:.3f} s in main; {len(solves)} "
+            f"re-solves ({[r['resolve_reason'] for r in rows if r['resolved']]}"
+            f"), {steps} inner steps in {solve_s:.3f} s: "
+            f"{solve_s / max(steps, 1) * 1e3:.3f} ms per solver step; "
+            f"compact train widths {lanes}; launches {launches}")
+        _check_rows(tag, rows, ticks)
+        if any(launches.values()):
+            raise AssertionError(f"sim {tag}: a kernel ran on the async "
+                                 f"path: {launches}")
+        if not (any(r["gossip"] for r in rows)
+                and any(0 < r["n_trained"] < r["n_active"] for r in rows)):
+            raise AssertionError(f"sim {tag}: no gossip or no subset "
+                                 f"training")
+        if scenario.startswith("feature-drift") and not (
+                any(r["n_drifted"] for r in rows)
+                and any(r["n_reestimated"] for r in rows)
+                and all(r["n_reestimated"] <= r["n_active"]
+                        for r in rows)):
+            raise AssertionError(f"sim {tag}: drift not re-measured "
+                                 f"within the budget")
+        out[tag] = dict(
+            wall_s=wall, launches=launches, resolves=len(solves),
+            reasons=[r["resolve_reason"] for r in rows],
+            inner_steps=steps, solve_s=solve_s,
+            ms_per_solver_step=solve_s / max(steps, 1) * 1e3,
+            n_trained=[r["n_trained"] for r in rows],
+            gossip=[len(r["gossip"]) for r in rows],
+            exchanges=[r["transmissions"] for r in rows],
+            n_dirty_pairs=[r["n_dirty_pairs"] for r in rows],
+            n_reestimated=[r["n_reestimated"] for r in rows],
+            phases={k: [r[k] for r in rows] for k in (
+                "wall_time_s", "train_wall_s", "div_wall_s",
+                "solver_wall_s", "transfer_wall_s", "eval_wall_s")})
+
+    # a cost model from the card's own async trace, and its tuning
+    tag = next(iter(traces))
+    cfg, events, rows = traces[tag]
+    model = CostModel.fit(events)
+    for phase, spec in sorted(model.phases.items()):
+        log(f"[sim-async] cost model ({tag}) {phase}: "
+            + ", ".join(f"{f} {c:.6g}" for f, c in zip(spec["features"],
+                                                          spec["coef"]))
+            + f"; first_extra {spec['first_extra']:.4g} s, "
+            f"{spec['n_events']} events, mean |err| "
+            f"{spec['mean_abs_err_s']:.4g} s")
+    pred = predict_run(cfg, model)["total_s"]
+    measured = sum(r["wall_time_s"] for r in rows)
+    tuned = autotune(cfg, model)
+    log(f"[sim-async] replay of {tag} under its own model: {pred:.3f} s "
+        f"predicted, {measured:.3f} s measured; autotune: knobs "
+        f"{tuned['knobs']}, {tuned['predicted_s']:.3f} s predicted vs "
+        f"{tuned['baseline_s']:.3f} s ({tuned['n_candidates']} "
+        f"candidates)")
+    if not (np.isfinite(pred) and pred > 0):
+        raise AssertionError("sim cost model: no usable prediction")
+    # the tuner's claim, re-derived: its knobs applied give its predicted
+    # seconds, its baseline is the run's own prediction, and the
+    # guardrails hold (mesh untouched, the budget covers the expected
+    # drift rate, patience within its bounds)
+    knobs = tuned["knobs"]
+    tuned_cfg = dataclasses.replace(cfg, **knobs)
+    budget = {-1: cfg.devices, 0: cfg.devices * (cfg.devices - 1) // 2}\
+        .get(tuned_cfg.div_budget, tuned_cfg.div_budget)
+    bad = [why for why, ok in (
+        ("baseline", tuned["baseline_s"] == pred),
+        ("predicted", predict_run(tuned_cfg, model)["total_s"]
+         == tuned["predicted_s"]),
+        ("mesh", "mesh" not in knobs),
+        ("budget", budget >= min_budget(cfg)),
+        ("patience", "resolve_patience" not in knobs
+         or PATIENCE_MIN <= knobs["resolve_patience"] <= PATIENCE_MAX))
+        if not ok]
+    if bad:
+        raise AssertionError(f"sim autotune: {bad} ({tuned})")
+    report["sim_async"] = out
+    report["sim_cost_model"] = dict(
+        model=model.to_dict(), replay_s=pred, measured_s=measured,
+        autotune=tuned)
+    return out
+
+
+def _archives_equal(a_dir, b_dir, step):
+    """Every member of two checkpoints' archives, bit for bit."""
+    from repro_torch.checkpoint import load_arrays
+    _, a = load_arrays(str(a_dir), step)
+    _, b = load_arrays(str(b_dir), step)
+    bad = sorted(k for k in set(a) | set(b)
+                 if k not in a or k not in b or a[k].dtype != b[k].dtype
+                 or not np.array_equal(a[k], b[k]))
+    return len(a), bad
+
+
+def _decisions_differ(a, b):
+    return [(ra["round"], k) for ra, rb in zip(a, b)
+            for k in SIM_DECISIONS if ra[k] != rb[k]]
+
+
+def _floats_apart(a, b):
+    """The largest |difference| of each float field of two runs' rows
+    (NaN against NaN counts 0)."""
+    return {k: max((abs(ra[k] - rb[k]) if np.isfinite(rb[k])
+                    or np.isfinite(ra[k]) else 0.0)
+                   for ra, rb in zip(a, b))
+            for k in ("drift", "mean_target_acc", "mean_source_acc",
+                      "energy", "energy_cum", "link_churn")}
+
+
+def phase_sim_faulty(ac, counted, report, dev="cuda"):
+    """The 'faulty' scenario (sync) through the CLI: an uninterrupted
+    run, counted (``alpha_combine`` as ``alpha_combine_plan`` gives it
+    each round); then the same run with ``--checkpoint-every 1
+    --kill-after k`` in a child process that SIGKILLs itself, and
+    ``--resume`` to the end in this one, counted (the resumed rounds'
+    kernels).  Holds: the kill (exit by SIGKILL, k + 1 rows logged), the
+    stitched log (every round once, ``resume_count`` 1 after k), and
+    ``restore_run`` putting back exactly the arrays ``save_run`` wrote
+    (a fresh engine restored from the last checkpoint, saved again: the
+    same archive bit for bit).  Prints whether the killed run's rounds
+    agree with the uninterrupted run's (two uninterrupted card runs of
+    one config) and whether the resumed rounds do, on the decision
+    fields.  The kernel against its plain version on the last round's
+    transfer inputs."""
+    import os
+    import signal
+    from repro_torch.nn.param import flatten_to_vector
+    from repro_torch.sim import SimulationEngine
+    from repro_torch.sim import run as sim_run
+    from repro_torch.sim.metrics import read_jsonl
+    from repro_torch.sim.snapshot import save_run
+
+    n, rounds, kill = SIM_FAULTY
+    out_dir = ROOT / "build" / "sim"
+    tag = f"faulty-n{n}-r{rounds}"
+    base = ["--scenario", "faulty", "--devices", str(n), "--rounds",
+            str(rounds), "--trace", "--quiet", "--device", dev]
+    straight_log, log_path = out_dir / f"{tag}.jsonl", \
+        out_dir / f"{tag}-resumed.jsonl"
+    ckpt, again = Path(f"{log_path}.ckpt"), out_dir / f"{tag}.again"
+    log_path.unlink(missing_ok=True)          # a fresh run, not a resume
+    for d in (ckpt, again):
+        shutil.rmtree(d, ignore_errors=True)
+
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    eng, straight = sim_run.simulate(base + ["--out", str(straight_log)])
+    wall = time.perf_counter() - t0
+    launches = read_counts(counted)
+    pool = len(eng.state.alpha)
+    per_call = ac._plan(pool, pool)[0]
+    for r in straight:
+        log(f"[sim-faulty] {tag} round {r['round']}: events {r['events']}"
+            f"; faults {r['n_faults']}, recovered {r['n_recovered']}, "
+            f"active {r['n_active']}, resolve {r['resolve_reason']} "
+            f"({r['solver_iters']} outer); {_wall_line(r)}")
+    _check_rows(tag, straight, rounds)
+    if launches["alpha_combine"] != rounds * per_call or any(
+            v for k, v in launches.items() if k != "alpha_combine"):
+        raise AssertionError(f"sim {tag}: launches {launches}, "
+                             f"alpha_combine should be "
+                             f"{rounds * per_call}")
+    if not sum(r["n_faults"] for r in straight):
+        raise AssertionError(f"sim {tag}: no fault was injected")
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    killed = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sim.run"] + base + [
+            "--out", str(log_path), "--checkpoint-every", "1",
+            "--kill-after", str(kill)], env=env, cwd=str(ROOT),
+        capture_output=True, text=True, timeout=900)
+    killed_s = time.perf_counter() - t0
+    prefix = read_jsonl(str(log_path))
+    if killed.returncode != -signal.SIGKILL or len(prefix) != kill + 1:
+        raise AssertionError(
+            f"sim {tag}: the --kill-after run exited {killed.returncode} "
+            f"with {len(prefix)} rows: {killed.stderr[-2000:]}")
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    eng2, rows = sim_run.simulate(base + [
+        "--out", str(log_path), "--checkpoint-every", "1", "--resume"])
+    resumed_s = time.perf_counter() - t0
+    resumed_launches = read_counts(counted)
+    want = (rounds - kill - 1) * per_call
+    if resumed_launches["alpha_combine"] != want:
+        raise AssertionError(f"sim {tag} resumed: launches "
+                             f"{resumed_launches}, alpha_combine should be "
+                             f"{want}")
+    logged = read_jsonl(str(log_path))
+    _check_rows(f"{tag} resumed", logged, rounds)
+    if [r["resume_count"] for r in logged] != \
+            [0] * (kill + 1) + [1] * (rounds - kill - 1):
+        raise AssertionError(f"sim {tag}: resume counts "
+                             f"{[r['resume_count'] for r in logged]}")
+    # restore_run puts back exactly what save_run wrote
+    cfg = dataclasses.replace(eng2.cfg, log_path=None, resume=True,
+                              checkpoint_every=None)
+    eng3 = SimulationEngine(cfg, device=dev)
+    eng3.cfg = dataclasses.replace(cfg, resume=False, ckpt_dir=str(again))
+    save_run(eng3, rounds)
+    n_arrays, bad = _archives_equal(ckpt, again, rounds)
+    log(f"[sim-faulty] {tag}: restore_run then save_run of step {rounds}: "
+        f"{n_arrays} arrays, {len(bad)} differ {bad[:5]}")
+    if bad or eng3.state.round != rounds:
+        raise AssertionError(f"sim {tag}: restore_run does not put back "
+                             f"the saved arrays: {bad[:10]}")
+    repeat = _decisions_differ(prefix, straight[:kill + 1])
+    after = _decisions_differ(logged[kill + 1:], straight[kill + 1:])
+    repeat_f = _floats_apart(prefix, straight[:kill + 1])
+    after_f = _floats_apart(logged[kill + 1:], straight[kill + 1:])
+    log(f"[sim-faulty] {tag}: two uninterrupted card runs (rounds 0-{kill}"
+        f" of the killed run and of the straight one) "
+        f"{'agree' if not repeat else 'differ at ' + str(repeat)} on the "
+        f"decisions, floats apart by {repeat_f}; resumed rounds "
+        f"{kill + 1}-{rounds - 1} "
+        f"{'agree' if not after else 'differ at ' + str(after)} with the "
+        f"straight run's, floats apart by {after_f}; straight {wall:.3f} s, "
+        f"killed child "
+        f"{killed_s:.3f} s, resumed {resumed_s:.3f} s; launches "
+        f"{launches} straight, {resumed_launches} resumed")
+    # the kernel against its plain version on the last round's transfer
+    flat = flatten_to_vector(eng.state.params, lead=1).contiguous()
+    a = torch.as_tensor(eng.state.alpha, dtype=torch.float32,
+                        device=flat.device)
+    kern, plain = ac.alpha_combine(flat, a), ac.alpha_combine_plain(flat, a)
+    err = float((kern - plain).abs().max())
+    log(f"[sim-faulty] {tag}: alpha_combine on the last round's transfer "
+        f"({pool} x {pool}) vs plain: max abs err {err:.3g}")
+    if not torch.allclose(kern, plain, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"sim {tag}: alpha_combine differs from its "
+                             f"plain version by {err}")
+    report["sim_faulty"] = dict(
+        wall_s=wall, killed_child_s=killed_s, resumed_s=resumed_s,
+        launches=launches, resumed_launches=resumed_launches,
+        kernels_per_round=per_call, archive_arrays=n_arrays,
+        repeat_differs=repeat, resumed_differs=after,
+        repeat_floats=repeat_f, resumed_floats=after_f, max_abs_err=err,
+        faults=[r["n_faults"] for r in straight],
+        reasons=[r["resolve_reason"] for r in straight],
+        phases={k: [r[k] for r in straight] for k in (
+            "wall_time_s", "train_wall_s", "div_wall_s", "solver_wall_s",
+            "transfer_wall_s", "eval_wall_s")})
+    return report["sim_faulty"]
+
+
 def phase_small_sim(report, devs=("cuda", "cpu")):
-    """Small sync runs on the GPU against the port on the CPU (which the
-    CPU tests hold against the JAX package), on the port's own seeds:
+    """Small runs (sync and async) on the GPU against the port on the CPU
+    (which the CPU tests hold against the JAX package), on the port's own
+    seeds:
     the decisions equal, the floats within the bars below."""
     from repro_torch.sim import SimConfig, SimulationEngine
     out = {}
-    for scenario, seed in SMALL_SIM:
+    for scenario, engine, seed in SMALL_SIM:
         a, b = (SimulationEngine(
-            SimConfig(scenario=scenario, seed=seed, **SMALL_SIM_CFG),
-            device=dev).run() for dev in devs)
+            SimConfig(scenario=scenario, engine=engine, seed=seed,
+                      **SMALL_SIM_CFG), device=dev).run() for dev in devs)
         if not any(r["n_targets"] for r in b):
             raise AssertionError(f"small sim {scenario}: no targets")
         worst = {}
@@ -1615,7 +1960,8 @@ def phase_small_sim(report, devs=("cuda", "cpu")):
                                          f"{ra['round']}: {k} {ra[k]} vs "
                                          f"{rb[k]}")
                 worst[k] = max(worst.get(k, 0.0), d)
-        log(f"[small] sim {scenario} (seed {seed}, {len(a)} rounds): "
+        log(f"[small] sim {scenario} ({engine}, seed {seed}, {len(a)} "
+            f"rounds): "
             f"decisions equal on GPU and CPU "
             f"(targets {[r['n_targets'] for r in a]}); max |d| "
             + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
@@ -1887,6 +2233,12 @@ def main() -> int:
     phase_baselines(ac, counted, state, stlf, report)
     # 4c. the simulator's sync path through its CLI, counted
     sim, sim_engines = phase_sim(ac, counted, report)
+    # 4d. its async, drift and fault/resume paths, counted
+    t0 = time.perf_counter()
+    sim_async = phase_sim_async(counted, report)
+    faulty = phase_sim_faulty(ac, counted, report)
+    report["sim_4d_s"] = time.perf_counter() - t0
+    log(f"[sim] phase 4d: {report['sim_4d_s']:.1f} s")
 
     # 5. the serve path at full width, counted
     serve_launches, model, params = phase_serve(counted, report)
@@ -1930,7 +2282,13 @@ def main() -> int:
          "run_all_baselines": report["baselines"]["launches"][
              "alpha_combine"]},
         **{f"sim {tag}": r["launches"]["alpha_combine"]
-           for tag, r in sim.items()})
+           for tag, r in sim.items()},
+        **{f"sim {tag}": r["launches"]["alpha_combine"]
+           for tag, r in sim_async.items()},
+        **{f"sim faulty-n{SIM_FAULTY[0]}-r{SIM_FAULTY[1]}":
+           faulty["launches"]["alpha_combine"],
+           f"sim faulty-n{SIM_FAULTY[0]}-r{SIM_FAULTY[1]} resumed":
+           faulty["resumed_launches"]["alpha_combine"]})
     log("[report] " + json.dumps(report))
     log(smi)
     log(json.dumps({"kernels": kernels}))

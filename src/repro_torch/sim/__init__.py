@@ -1,21 +1,23 @@
 """repro_torch.sim — the time-evolving decentralized-network simulator
-on the port (``repro.sim``'s sync path).
+on the port (``repro.sim``).
 
-A network of devices advances round by round under a named scenario
-(static, channel drift, device churn, label arrival): local training
-continues in one stacked call per round, divergence estimates refresh
-incrementally, and the (P) solver re-runs — warm-started from the
-previous solution — only when the measured drift exceeds a threshold.
-Every round's transfer is the ``alpha_combine`` kernel on the GPU.
+A network of devices advances tick by tick under a named scenario
+(static, channel drift, device churn, label arrival, clock drift,
+stragglers, feature drift, injected faults), under the sync executor
+(every device trains each round, the alpha-mixture transfer — the
+``alpha_combine`` kernel on the GPU — applies globally) or the
+async-gossip one (local clocks, pairwise gossip exchanges): divergence
+estimates refresh incrementally, and the (P) solver re-runs —
+warm-started from the previous solution — only when the measured drift
+(or, async, the assignment's age) calls for it.  Runs checkpoint and
+resume crash-consistently (``snapshot``).
 
 Entry points:
   python -m repro_torch.sim.run --scenario channel-drift --devices 8
+  python -m repro_torch.sim.replay --model run.trace.jsonl
   SimulationEngine(SimConfig(...), device="cpu").run()
 
-Not ported yet (each refused with a message naming its ROADMAP.md
-item): the async-gossip executor and the feature-drift scenarios, the
-sharded pool, checkpoint/resume, fault injection and the trace cost
-model.
+Not ported yet: the sharded pool (``mesh``, ROADMAP.md queue 1 item 5).
 """
 from repro_torch.sim.clock import DeviceClocks  # noqa: F401
 from repro_torch.sim.engine import SimConfig, SimulationEngine  # noqa: F401

@@ -1,36 +1,40 @@
-"""Simulation engine: state + solver plumbing; the executor drives the
+"""Simulation engine: state + solver plumbing; the executors drive the
 ticks (the port of ``repro.sim.engine``).
 
 The per-tick control flow lives in the execution layer
 (``repro_torch.sim.executors``): ``SyncExecutor`` runs the five-phase
 round pipeline (scenario mutation -> batched training -> divergence
-refresh -> drift-gated re-solve -> transfer/eval/metrics).  WHERE the
+refresh -> drift-gated re-solve -> transfer/eval/metrics), and
+``AsyncGossipExecutor`` runs event-driven ticks where devices progress
+on heterogeneous local clocks and exchange over gossip pairs.  WHERE the
 heavy array phases run is the device pool (``repro_torch.sim.shard``).
 The engine owns what they share:
 
   - NetworkState construction (fixed-size pool, spares for churn)
   - the scenario mutation API (drift_channels / set_active /
-    reveal_labels / set_tick_period; drift_features comes with the
-    feature-drift scenarios)
+    reveal_labels / set_tick_period / drift_features)
   - the drift metric against the last-solve snapshot
   - warm-started (P) re-solves (previous SolverResult remapped over
     churn) and installation of the solved assignment
   - churn-robust re-seeding: a (re)joining device adopts the current
     best source mixture instead of keeping stale (or fresh-init) params
+  - crash-consistent checkpoints (``sim.snapshot``) and ``resume``
   - the JSONL metrics logger
 
 ``SimConfig`` keeps every field and default of the reference's, so a
-reference config maps over one to one; fields of features not ported
-yet raise ``NotImplementedError`` naming their ROADMAP.md item.  The
-engine runs on ``device`` (the GPU unless the caller passes "cpu").
-Its seeds take the place of the reference's PRNG keys; ``params0``
-(numpy, e.g. the reference engine's initial parameters) and ``draws``
-(a draws provider, see ``executors``) inject the reference's
-initialization and row draws instead.
+reference config maps over one to one; only ``mesh`` (the sharded pool,
+ROADMAP.md queue 1 item 5) is refused.  The engine runs on ``device``
+(the GPU unless the caller passes "cpu").  Its seeds take the place of
+the reference's PRNG keys; ``params0`` (numpy, e.g. the reference
+engine's initial parameters) and ``draws`` (a draws provider, see
+``executors``) inject the reference's initialization and row draws
+instead.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import signal
 from typing import TYPE_CHECKING, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -41,8 +45,10 @@ from repro_torch.core.bounds import BoundTerms
 from repro_torch.core.energy import EnergyModel
 from repro_torch.core.problem import STLFProblem
 from repro_torch.core.solver import SolverResult, solve_stlf
-from repro_torch.data.partition import build_network, make_device, \
-    reveal_labels
+from repro_torch.data.digits import DOMAINS, render_images
+from repro_torch.data.partition import (DeviceData, build_network,
+                                        interpolate_features, make_device,
+                                        reveal_labels)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl.client import (StackedClients, init_client_params,
                                    stack_clients)
@@ -73,21 +79,15 @@ if TYPE_CHECKING:
 
         def refresh(self, pairs: np.ndarray, clients: StackedClients
                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-            """(h0, rows) of the content-addressed re-estimation of
-            ``pairs`` (``Executor._refresh_dirty``): a function of the
-            pairs' device ids, not of the round."""
-
-#: SimConfig's fault-injection knobs (the 'faulty' scenario's)
-FAULT_KNOBS = ("fault_seed", "fault_crash_p", "fault_rejoin_after",
-               "fault_shard_p", "fault_op_p", "fault_gossip_drop_p",
-               "fault_retries", "fault_backoff_s")
-
+            """(h0, rows) of the content-addressed measurement of
+            ``pairs`` (``Executor._refresh_dirty``, and every measurement
+            under ``div_key_mode='content'``): a function of the pairs'
+            device ids, not of the round."""
 
 @dataclasses.dataclass
 class SimConfig:
     """The reference's SimConfig, field for field (its comments describe
-    the reference's features; ``_refuse_not_ported`` lists the ones the
-    port does not run yet)."""
+    the reference's features; the port refuses only ``mesh``)."""
     scenario: str = "static"
     devices: int = 8
     rounds: int = 5
@@ -311,38 +311,11 @@ class SimConfig:
         if self.train_gather_floor < 1:
             raise ValueError(f"train_gather_floor must be >= 1, got "
                              f"{self.train_gather_floor}")
-        self._refuse_not_ported()
-
-    def _refuse_not_ported(self):
-        """Fields of the reference's features this port does not run
-        yet raise here, each naming the ROADMAP.md item that brings it
-        (defaults pass, so a reference config maps over one to one)."""
-        item3 = "queue 1 item 3 (async and drift)"
-        item4 = "queue 1 item 4 (robustness and trace)"
-        refused = []
-        if self.engine != "sync":
-            refused.append((f"engine={self.engine!r}", item3))
-        if self.div_key_mode != "positional":
-            refused.append((f"div_key_mode={self.div_key_mode!r}", item3))
         if self.mesh:
-            refused.append((f"mesh={self.mesh}",
-                            "queue 1 item 5 (sharded pool)"))
-        for knob in ("checkpoint_every", "ckpt_dir"):
-            if getattr(self, knob) is not None:
-                refused.append((f"{knob}={getattr(self, knob)!r}", item4))
-        if self.resume:
-            refused.append(("resume=True", item4))
-        if self.kill_after >= 0:
-            refused.append((f"kill_after={self.kill_after}", item4))
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for knob in FAULT_KNOBS:
-            if getattr(self, knob) != defaults[knob]:
-                refused.append((f"{knob}={getattr(self, knob)!r}", item4))
-        if refused:
             raise NotImplementedError(
-                "not ported to repro_torch yet: " + "; ".join(
-                    f"{what} (ROADMAP.md {where})"
-                    for what, where in refused))
+                f"mesh={self.mesh}: the sharded device pool is not ported "
+                f"to repro_torch yet (ROADMAP.md queue 1 item 5 (sharded "
+                f"pool))")
 
 
 class SimulationEngine:
@@ -389,9 +362,15 @@ class SimulationEngine:
         self._prev_links: set = set()
         self._energy_cum = 0.0
         self._solve_tick = -1
-        #: fault injection comes with the 'faulty' scenario (not ported);
-        #: the executor reads it
+        # feature-drift caches: pristine per-device data + the one
+        # alt-domain render a device's time-varying mix blends against
+        self._drift_base: Dict[int, DeviceData] = {}
+        self._drift_alt: Dict[int, np.ndarray] = {}
+        self._drift_domain: Dict[int, str] = {}
+        #: FaultInjector, installed by the 'faulty' scenario's setup;
+        #: None on fault-free runs (executors/pools consult this)
         self.faults = None
+        #: how many times this run has been resumed from a checkpoint
         self._resume_count = 0
         #: per-phase wall-clock recorder — a no-op unless cfg.trace;
         #: constructed before the pool/executor so both can reference it
@@ -399,7 +378,19 @@ class SimulationEngine:
         self.trace = TraceRecorder(cfg, self.device)
         self.pool = make_pool(self)
         self.executor = get_executor(cfg.engine)(self)
-        self.logger = MetricsLogger(cfg.log_path)
+        self.executor.setup()
+        self.scenario.setup(self)
+        resumed = False
+        if cfg.resume:
+            from repro_torch.sim.snapshot import restore_run
+            restore_run(self)                # raises if nothing to resume
+            resumed = True
+        # the logger comes LAST: on resume it reconciles the existing
+        # JSONL (drops rows the resumed engine will re-execute, keeps
+        # the trustworthy prefix) instead of truncating it
+        self.logger = MetricsLogger(
+            cfg.log_path,
+            resume_round=self.state.round if resumed else None)
 
     # ------------------------------------------------- scenario mutation API
     def drift_channels(self, rng: np.random.Generator, sigma: float):
@@ -427,10 +418,46 @@ class SimulationEngine:
 
     def drift_features(self, device: int, mix: float,
                        domain: Optional[str] = None) -> str:
-        """Feature drift (the feature-drift scenarios' mutation)."""
-        raise NotImplementedError(
-            "drift_features: feature drift is not ported to repro_torch "
-            "yet (ROADMAP.md queue 1 item 3 (async and drift))")
+        """Feature drift: re-render ``device``'s features as the convex
+        mix ``(1 - mix) * original + mix * alt-domain`` and invalidate
+        every Algorithm-1 estimate the device participates in (its pairs
+        go dirty; the executors' budgeted refresh re-measures them,
+        stalest first, and the moved estimates register on the drift
+        metric — so sustained drift eventually trips a warm re-solve
+        with ``resolve_reason='drift'``).
+
+        The first call for a device caches its pristine data and renders
+        the alt-domain counterpart ONCE (deterministic seed per device:
+        ``cfg.seed + 7000 + device``, independent of call order); later
+        calls only re-blend, so ``mix`` is absolute, not incremental.
+        ``domain`` picks the drift target on that first call (default:
+        the next domain after the device's dominant one in
+        ``data.digits.DOMAINS``); it is ignored once cached.  Returns
+        the target domain."""
+        st = self.state
+        j = int(device)
+        if j not in self._drift_base:
+            base = st.pool[j]
+            if domain is None:
+                own = int(np.bincount(base.domain_ids).argmax())
+                domain = DOMAINS[(own + 1) % len(DOMAINS)]
+            self._drift_base[j] = base
+            self._drift_alt[j] = render_images(
+                base.true_labels, domain, self.cfg.seed + 7000 + j)
+            self._drift_domain[j] = domain
+        cur = st.pool[j]
+        blended = interpolate_features(self._drift_base[j],
+                                       self._drift_alt[j], mix)
+        # only FEATURES drift: the blend is rebuilt from the pristine
+        # base, but labels may have been revealed since it was cached
+        # (label-arrival composing with feature drift), so the device's
+        # CURRENT label state is carried, never the cached one
+        st.pool[j] = DeviceData(blended.images, cur.labels,
+                                cur.labeled_mask, cur.domain_ids,
+                                cur.true_labels)
+        st.mark_pairs_dirty(j)
+        self._restack = True
+        return self._drift_domain[j]
 
     # ------------------------------------------------------------ internals
     def _reseed_device(self, j: int):
@@ -463,6 +490,26 @@ class SimulationEngine:
             v[j] = torch.tensordot(wj.to(v.dtype), v, dims=1)
             params[k] = v
         st.params = params
+
+    def _recover_devices(self, devices, shard: Optional[int] = None):
+        """Lost-shard recovery: a dead shard's devices re-enter through
+        the churn path — each is deactivated then immediately
+        re-activated, so ``reseed_on_rejoin`` re-seeds its params from
+        the solved source mixture exactly as a churn rejoin would.  The
+        membership flip also marks the assignment dirty, so the gate
+        re-solves with ``resolve_reason='membership'``.  (Only the
+        sharded pool loses shards; LocalPool never calls this.)"""
+        devices = [int(d) for d in devices]
+        for d in devices:
+            self.set_active(d, False)
+        for d in devices:
+            self.set_active(d, True)
+        if self.faults is not None:
+            self.faults.n_recovered += len(devices)
+        if self.cfg.verbose and devices:
+            where = f"shard {shard}" if shard is not None else "pool"
+            print(f"[sim] recovered {len(devices)} devices from lost "
+                  f"{where}: {devices}")
 
     def _drift_metric(self) -> float:
         st = self.state
@@ -576,12 +623,45 @@ class SimulationEngine:
     def step(self, t: int) -> dict:
         return self.executor.step(t)
 
+    def _maybe_checkpoint(self, step: int):
+        """Crash-consistent snapshot after round ``step - 1`` completed
+        (``step`` is the next round to execute — what a resume starts
+        at).  Cadence is ``checkpoint_every``; retention is
+        ``ckpt_keep`` newest."""
+        cfg = self.cfg
+        if cfg.checkpoint_every is None:
+            return
+        if step % cfg.checkpoint_every != 0 and step != cfg.rounds:
+            return
+        from repro_torch.checkpoint import gc_checkpoints
+        from repro_torch.sim.snapshot import save_run
+        t0 = self.trace.start()
+        save_run(self, step)
+        gc_checkpoints(cfg.ckpt_dir, keep=cfg.ckpt_keep)
+        # the record for the round just completed is already emitted, so
+        # this lands in the NEXT round's ckpt_wall_s
+        self.trace.stop("checkpoint", t0,
+                        n_devices=self.state.pool_size)
+        if cfg.verbose:
+            print(f"[sim] checkpointed step {step} -> {cfg.ckpt_dir}")
+
     def run(self) -> List[dict]:
-        """Execute rounds ``state.round .. rounds-1``."""
+        """Execute rounds ``state.round .. rounds-1`` (``state.round`` is
+        0 on a fresh run, the restored step on ``resume``), taking a
+        crash-consistent checkpoint every ``checkpoint_every`` completed
+        rounds.  A checkpoint at step k means "rounds < k are done and
+        logged"; the resume path re-executes from k."""
+        cfg = self.cfg
         try:
-            for t in range(self.state.round, self.cfg.rounds):
+            for t in range(self.state.round, cfg.rounds):
                 self.step(t)
                 self.state.round = t + 1
+                self._maybe_checkpoint(t + 1)
+                if cfg.kill_after >= 0 and t == cfg.kill_after:
+                    # crash-injection hook: a REAL hard kill — no
+                    # finally blocks, no atexit, no flushing beyond
+                    # what already fsynced
+                    os.kill(os.getpid(), signal.SIGKILL)
         finally:
             self.logger.close()
             self.trace.close()

@@ -171,14 +171,33 @@ class MetricsLogger:
     Crash consistency: every row is flushed AND fsynced, so after a hard
     kill (SIGKILL, power loss) the log holds every completed round plus
     at most one truncated final line — which ``read_jsonl`` tolerates.
-    (The reference's ``resume_round`` comes with checkpoint/resume.)"""
+    That makes the log tail trustworthy for ``--resume``.
 
-    def __init__(self, path: Optional[str] = None):
+    ``resume_round``: continue an interrupted run's log in place — the
+    existing file is read back (tolerating a truncated tail), rows from
+    rounds the resumed engine will re-execute (``round >=
+    resume_round``) are dropped, the file is rewritten to exactly the
+    kept prefix, and subsequent ``log`` calls append.  ``records`` is
+    seeded with the kept prefix so a resumed run still returns the FULL
+    stitched history."""
+
+    def __init__(self, path: Optional[str] = None,
+                 resume_round: Optional[int] = None):
         self.path = path
         self.records: List[dict] = []
         self._fh: Optional[IO[str]] = None
-        if path:
-            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if not path:
+            return
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if resume_round is not None and os.path.exists(path):
+            kept = [r for r in read_jsonl(path)
+                    if r.get("round", resume_round) < resume_round]
+            with open(path, "w") as f:
+                for row in kept:
+                    f.write(json.dumps(row, default=float) + "\n")
+            self.records = kept
+            self._fh = open(path, "a")
+        else:
             self._fh = open(path, "w")
 
     def log(self, record: RoundRecord) -> dict:

@@ -1,10 +1,12 @@
 """Scenario registry: named time-evolution processes for the network
-(the sync scenarios of ``repro.sim.scenarios``, drawing from the same
-numpy streams, so one seed gives the same events in both packages).
+(the port of ``repro.sim.scenarios``: every scenario, drawing from the
+same numpy streams, so one seed gives the same events in both
+packages).
 
 A scenario mutates the engine's NetworkState once per round through the
-engine's mutation API (drift_channels / set_active / reveal_labels) and
-returns a list of event dicts that land in the round's metrics record.
+engine's mutation API (drift_channels / set_active / reveal_labels /
+set_tick_period / drift_features) and returns a list of event dicts
+that land in the round's metrics record.
 
 Registered scenarios:
   static        nothing changes — the multi-round control
@@ -13,10 +15,28 @@ Registered scenarios:
                 re-decided whenever membership changes
   label-arrival unlabeled devices gradually gain labels, flipping targets
                 into sources as their empirical error drops
+  async-gossip  clock-drift control for the async executor: device tick
+                periods are occasionally re-drawn; no data/channel change
+  stragglers    a fixed fraction of devices runs on a much slower clock;
+                the straggler set slowly rotates
+  feature-drift a designated subset of devices' FEATURE distributions
+                slide toward a foreign domain over time (domain
+                interpolation), dirtying their Algorithm-1 pairs for the
+                executors' budgeted re-estimation
+  feature-drift-async
+                feature-drift + occasional clock re-draws — the domain
+                shift regime under the async executor
+  faulty        fault-injection workload (repro_torch.sim.faults): device
+                crashes with later rejoin, shard losses, transient
+                pool-op failures and dropped gossip exchanges on a
+                seeded schedule; the fault_* SimConfig knobs tune it
 
-The reference's other scenarios are not ported yet (``NOT_PORTED``):
-``get_scenario`` refuses them, naming the ROADMAP.md item that brings
-them.
+The clock scenarios mutate device tick rates through
+``engine.set_tick_period`` and are only meaningful under
+``--engine async-gossip`` (under sync there are no clocks and they
+degenerate to ``static``).  Scenarios that need to see the initial state
+(e.g. to designate stragglers) override ``setup``, called once after the
+engine and its executor are constructed.
 """
 from __future__ import annotations
 
@@ -35,15 +55,9 @@ def register(name: str):
     return deco
 
 
-#: the reference's scenarios this port does not run yet -> where they
-#: come (ROADMAP.md, queue 1)
-NOT_PORTED = {
-    "async-gossip": "queue 1 item 3 (async and drift)",
-    "stragglers": "queue 1 item 3 (async and drift)",
-    "feature-drift": "queue 1 item 3 (async and drift)",
-    "feature-drift-async": "queue 1 item 3 (async and drift)",
-    "faulty": "queue 1 item 4 (robustness and trace)",
-}
+#: the reference's scenarios this port does not run (none since the async,
+#: drift and fault slice)
+NOT_PORTED: Dict[str, str] = {}
 
 
 def get_scenario(name: str) -> Type["Scenario"]:
@@ -68,8 +82,21 @@ class Scenario:
         self.cfg = cfg
         self.rng = rng
 
+    def setup(self, engine):
+        """One-time hook after engine/executor construction."""
+
     def step(self, engine, t: int) -> List[dict]:
         return []
+
+    # ---------------------------------------------- checkpoint support
+    def state_dict(self) -> dict:
+        """Scenario-owned mutable state for run checkpoints (base: the
+        RNG stream; subclasses append their own fields).  Must be
+        JSON-serializable — it rides in the checkpoint metadata."""
+        return {"rng": self.rng.bit_generator.state}
+
+    def load_state_dict(self, state: dict):
+        self.rng.bit_generator.state = state["rng"]
 
 
 @register("static")
@@ -121,6 +148,200 @@ class DeviceChurn(Scenario):
             engine.set_active(join, True)
             events.append({"event": "join", "device": join})
         return events
+
+
+def _maybe_retick(scenario: "Scenario", engine, p: float) -> List[dict]:
+    """Shared clock-redraw block (async-gossip + feature-drift-async):
+    with probability ``p``, re-draw one active device's clock period
+    from the configured set.  The leading ``random()`` is drawn
+    UNCONDITIONALLY so the scenario's rng stream is engine-agnostic
+    (under sync there are no clocks and the draw is simply discarded)."""
+    st = engine.state
+    r = scenario.rng.random()
+    if st.clocks is None or r >= p:
+        return []
+    a = st.active_idx
+    dev = int(a[scenario.rng.integers(len(a))])
+    period = int(scenario.rng.choice(
+        np.asarray(list(scenario.cfg.tick_periods), int)))
+    engine.set_tick_period(dev, period)
+    return [{"event": "retick", "device": dev, "period": period}]
+
+
+@register("async-gossip")
+class AsyncGossip(Scenario):
+    """Clock-drift control for the async-gossip executor: no exogenous
+    data or channel mutation, but with probability ``retick_p`` per tick
+    one active device's clock period is re-drawn from the configured
+    period set — devices speed up and slow down over the run."""
+
+    def __init__(self, cfg, rng):
+        super().__init__(cfg, rng)
+        self.p = getattr(cfg, "retick_p", 0.1)
+
+    def step(self, engine, t):
+        return _maybe_retick(self, engine, self.p)
+
+
+@register("stragglers")
+class Stragglers(Scenario):
+    """A fixed fraction of devices runs on a much slower clock (the
+    straggler/participation regime of async FL); occasionally one
+    straggler recovers and a previously-fast device starts straggling,
+    so the slow set rotates without changing its size."""
+
+    def __init__(self, cfg, rng):
+        super().__init__(cfg, rng)
+        self.frac = getattr(cfg, "straggler_frac", 0.25)
+        self.period = getattr(cfg, "straggler_period", 8)
+        self.p_swap = getattr(cfg, "straggler_p_swap", 0.1)
+        self.stragglers: set = set()
+        self._orig_period: dict = {}     # sampled period, restored on recovery
+
+    def _straggle(self, engine, device: int):
+        self.stragglers.add(device)
+        self._orig_period[device] = int(engine.state.clocks.period[device])
+        engine.set_tick_period(device, self.period)
+
+    def setup(self, engine):
+        st = engine.state
+        if st.clocks is None:
+            return
+        a = st.active_idx
+        k = max(1, int(round(self.frac * len(a))))
+        for i in sorted(int(i) for i in
+                        self.rng.choice(a, size=k, replace=False)):
+            self._straggle(engine, i)
+
+    def state_dict(self):
+        d = super().state_dict()
+        d["stragglers"] = sorted(self.stragglers)
+        d["orig_period"] = {str(k): int(v)
+                            for k, v in self._orig_period.items()}
+        return d
+
+    def load_state_dict(self, state):
+        super().load_state_dict(state)
+        self.stragglers = set(int(i) for i in state["stragglers"])
+        self._orig_period = {int(k): int(v)
+                             for k, v in state["orig_period"].items()}
+
+    def step(self, engine, t):
+        st = engine.state
+        events: List[dict] = []
+        if st.clocks is None:
+            return events
+        if self.rng.random() < self.p_swap and self.stragglers:
+            back = int(self.rng.choice(sorted(self.stragglers)))
+            self.stragglers.remove(back)
+            restored = self._orig_period.pop(back, 1)
+            engine.set_tick_period(back, restored)
+            events.append({"event": "recover", "device": back,
+                           "period": restored})
+            fast = [int(i) for i in st.active_idx
+                    if int(i) not in self.stragglers and int(i) != back]
+            if fast:
+                slow = fast[self.rng.integers(len(fast))]
+                self._straggle(engine, slow)
+                events.append({"event": "straggle", "device": slow,
+                               "period": self.period})
+        return events
+
+
+@register("feature-drift")
+class FeatureDrift(Scenario):
+    """Domain shift over time (the regime of Yao et al. 2021 / FACT): a
+    ``feature_drift_frac`` subset of the initially-active devices is
+    designated as drifters at setup, and each tick each drifter's
+    domain mix advances by ``feature_drift_step`` with probability
+    ``feature_drift_p`` (absolute mix, clipped at 1.0 — a device ends
+    fully re-rendered in its alt domain).  Every drift step re-blends
+    the device's features through ``engine.drift_features``, which
+    dirties its Algorithm-1 pairs; the executors re-measure a budgeted
+    stalest-first subset each tick and the moved estimates drive
+    ``resolve_reason='drift'`` warm re-solves."""
+
+    def __init__(self, cfg, rng):
+        super().__init__(cfg, rng)
+        self.frac = getattr(cfg, "feature_drift_frac", 0.5)
+        self.p = getattr(cfg, "feature_drift_p", 0.3)
+        self.step_size = getattr(cfg, "feature_drift_step", 0.15)
+        self.mix: dict = {}              # drifter -> current absolute mix
+
+    def setup(self, engine):
+        a = engine.state.active_idx
+        k = max(1, int(round(self.frac * len(a))))
+        self.mix = {int(d): 0.0 for d in sorted(
+            int(i) for i in self.rng.choice(a, size=k, replace=False))}
+
+    def state_dict(self):
+        d = super().state_dict()
+        d["mix"] = {str(k): float(v) for k, v in self.mix.items()}
+        return d
+
+    def load_state_dict(self, state):
+        super().load_state_dict(state)
+        # dict order is part of the trajectory (step() iterates it);
+        # JSON preserves insertion order, so rebuild in the saved order
+        self.mix = {int(k): float(v) for k, v in state["mix"].items()}
+
+    def step(self, engine, t):
+        events: List[dict] = []
+        for d in self.mix:
+            # draw unconditionally so the event stream of the OTHER
+            # drifters is unaffected by one device leaving/saturating
+            r = self.rng.random()
+            if not engine.state.active[d] or self.mix[d] >= 1.0 \
+                    or r >= self.p:
+                continue
+            self.mix[d] = min(1.0, self.mix[d] + self.step_size)
+            domain = engine.drift_features(d, self.mix[d])
+            events.append({"event": "feature_drift", "device": d,
+                           "mix": round(self.mix[d], 6),
+                           "domain": domain})
+        return events
+
+
+@register("feature-drift-async")
+class FeatureDriftAsync(FeatureDrift):
+    """Feature drift under the async executor's world: the same domain
+    interpolation schedule, plus the ``async-gossip`` scenario's
+    occasional clock re-draws (``retick_p``) — so budgeted dirty-pair
+    re-estimation, gossip measurement, and heterogeneous clocks all
+    interact.  Degenerates to plain feature-drift under ``sync`` (no
+    clocks to mutate)."""
+
+    def __init__(self, cfg, rng):
+        super().__init__(cfg, rng)
+        self.retick_p = getattr(cfg, "retick_p", 0.1)
+
+    def step(self, engine, t):
+        events = super().step(engine, t)
+        events.extend(_maybe_retick(self, engine, self.retick_p))
+        return events
+
+
+@register("faulty")
+class Faulty(Scenario):
+    """Fault-injection workload (repro_torch.sim.faults): installs a
+    FaultInjector on the engine at setup and advances its seeded
+    schedule every tick — device crashes with later rejoin through the
+    churn/reseed path, shard losses the ShardedPool detects and
+    recovers, transient pool-op failures ridden out with bounded retry,
+    and (async executor) dropped gossip exchanges.  The schedule runs
+    on its own PRNG stream (``fault_seed``, default ``seed + 5``) so
+    the fault pattern is independent of every other scenario draw, and
+    the injector's state is part of the run checkpoint — a resumed
+    faulty run replays the exact same failures."""
+
+    def setup(self, engine):
+        from repro_torch.sim.faults import FaultInjector
+        cfg = self.cfg
+        seed = cfg.fault_seed if cfg.fault_seed >= 0 else cfg.seed + 5
+        engine.faults = FaultInjector(cfg, np.random.default_rng(seed))
+
+    def step(self, engine, t):
+        return engine.faults.begin_tick(engine, t)
 
 
 @register("label-arrival")

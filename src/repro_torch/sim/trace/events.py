@@ -1,7 +1,7 @@
 """TraceRecorder: per-phase wall-clock events for the simulator (the
 port of ``repro.sim.trace.events``).
 
-Both the executor and the pool bracket their heavy phases with
+Both executors and the pool bracket their heavy phases with
 ``start()`` / ``stop()`` (or report an externally-measured duration via
 ``add()``), and each completed phase becomes one structured event::
 
@@ -10,17 +10,17 @@ Both the executor and the pool bracket their heavy phases with
 
 Per-tick accumulators surface into the JSONL metrics log as the
 ``*_wall_s`` RoundRecord fields (``tick_wall_fields``, popped by the
-executor's ``_emit``) — nondeterministic fields, stripped from every
+executors' ``_emit``) — nondeterministic fields, stripped from every
 determinism comparison; the raw events are kept in ``events`` and
-optionally streamed to a JSONL file (``SimConfig.trace_path``).
+optionally streamed to a JSONL file (``SimConfig.trace_path``), the
+input of the cost-model fit (``trace.model``).
 
 Disabled (``SimConfig.trace=False``, the default) every method is an
 early-returning no-op: no device synchronization is issued, and no
 random stream is touched.  Enabled, ``stop(..., block=out)`` calls
 ``torch.cuda.synchronize()`` on a CUDA run (where JAX calls
 ``jax.block_until_ready``) so the interval covers the phase's device
-work instead of its enqueue.  The cost model, replay and tuner of
-``repro.sim.trace`` are not ported yet.
+work instead of its enqueue.
 """
 from __future__ import annotations
 

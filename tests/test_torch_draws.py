@@ -115,11 +115,14 @@ def test_pair_draws_are_the_references():
 
 
 class JaxSimDraws:
-    """The draws ``repro.sim``'s sync executor makes inside a round,
-    recomputed from the reference engine's key (``split(PRNGKey(seed))``'s
-    second half): a draws provider for ``repro_torch.sim.SimulationEngine``.
-    Round t trains on ``split(fold_in(key, t), P)`` and bootstraps
-    Algorithm 1 from ``fold_in(fold_in(key, t), 1)``."""
+    """The draws ``repro.sim``'s executors make inside a tick, recomputed
+    from the reference engine's key (``split(PRNGKey(seed))``'s second
+    half): a draws provider for ``repro_torch.sim.SimulationEngine``.
+    Tick t trains on ``split(fold_in(key, t), P)`` under both executors
+    (the async executor's compact step gathers the eligible lanes' rows
+    of the same split), and measures Algorithm 1 from
+    ``fold_in(fold_in(key, t), 1)``: the sync bootstrap and the async
+    gossip pairs alike (``divergence``)."""
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -132,6 +135,8 @@ class JaxSimDraws:
                                batch=self.cfg.batch)
 
     def divergence(self, t, pairs, clients):
+        """(h0, rows) of tick t's positional measurement of ``pairs``
+        (the sync bootstrap, or the async tick's gossip meetings)."""
         from repro_torch.convert import params_from_jax
         k_div = jax.random.fold_in(jax.random.fold_in(self.key, t), 1)
         k_pairs, init_key = jax.random.split(k_div)

@@ -106,17 +106,8 @@ def test_cli_writes_the_reference_schema(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--scenario", "faulty"], "item 4"),
-    (["--scenario", "feature-drift"], "item 3"),
-    (["--engine", "async-gossip"], "item 3"),
     (["--mesh", "2"], "item 5"),
     (["--mesh=2"], "item 5"),
-    (["--resume"], "item 4"),
-    (["--checkpoint-every", "1"], "item 4"),
-    (["--div-key-mode", "content"], "item 3"),
-    (["--gossip-pairs", "3"], "item 3"),
-    (["--fault-crash-p", "0.5"], "item 4"),
-    (["--autotune"], "item 4"),
 ])
 def test_cli_refuses_unported(argv, match, capsys):
     with pytest.raises(SystemExit) as e:
@@ -124,6 +115,31 @@ def test_cli_refuses_unported(argv, match, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported to repro_torch" in err and match in err
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    (["--scenario", "faulty"], "scenario", "faulty"),
+    (["--scenario", "feature-drift"], "scenario", "feature-drift"),
+    (["--engine", "async-gossip"], "engine", "async-gossip"),
+    (["--resume"], "ckpt_dir", "x.jsonl.ckpt"),
+    (["--checkpoint-every", "1"], "checkpoint_every", 1),
+    (["--div-key-mode", "content"], "div_key_mode", "content"),
+    (["--gossip-pairs", "3"], "gossip_pairs", 3),
+    (["--fault-crash-p", "0.5"], "fault_crash_p", 0.5),
+    (["--tick-periods", "1,3"], "tick_periods", (1, 3)),
+])
+def test_cli_takes_the_reference_flags(argv, field, value):
+    """The flags the reference's CLI declares (``--mesh`` aside) parse,
+    with its defaults, into the SimConfig field they set there."""
+    from repro.sim import run as jrun
+    p = trun.build_parser()
+    cfg = trun.config_from_args(trun.parse_args(
+        p, argv + ["--out", "x.jsonl"]))
+    assert getattr(cfg, field) == value
+    ours = {a.dest: a.default for a in p._actions}
+    theirs = {a.dest: a.default for a in jrun.build_parser()._actions}
+    del theirs["mesh"], ours["device"]
+    assert ours == theirs
 
 
 def test_cli_needs_the_gpu_unless_told(tmp_path):
@@ -134,17 +150,24 @@ def test_cli_needs_the_gpu_unless_told(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(engine="async-gossip"), "item 3"),
     (dict(mesh=1), "item 5"),
-    (dict(div_key_mode="content"), "item 3"),
-    (dict(resume=True, ckpt_dir="d"), "item 4"),
-    (dict(kill_after=0), "item 4"),
-    (dict(fault_op_p=0.5), "item 4"),
 ])
 def test_config_refuses_unported(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         SimConfig(**kw)
     JSimConfig(**kw)                          # the reference takes them
+
+
+@pytest.mark.parametrize("kw", [
+    dict(engine="async-gossip"),
+    dict(div_key_mode="content"),
+    dict(resume=True, ckpt_dir="d"),
+    dict(kill_after=0),
+    dict(fault_op_p=0.5),
+])
+def test_config_takes_what_the_reference_takes(kw):
+    ours, theirs = SimConfig(**kw), JSimConfig(**kw)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
 
 
 def test_config_keeps_the_reference_fields():
@@ -155,5 +178,5 @@ def test_config_keeps_the_reference_fields():
         SimConfig(devices=0)
     with pytest.raises(KeyError, match="unknown scenario"):
         SimulationEngine(SimConfig(scenario="nope"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        SimulationEngine(SimConfig(scenario="stragglers"), device="cpu")
+    with pytest.raises(KeyError, match="unknown engine"):
+        SimulationEngine(SimConfig(engine="nope"), device="cpu")

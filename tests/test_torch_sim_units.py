@@ -175,20 +175,25 @@ def test_scenario_event_streams_match(name):
 
 
 def test_unported_scenarios_are_refused():
-    assert set(scenarios.SCENARIOS) | set(scenarios.NOT_PORTED) \
-        == set(jscenarios.SCENARIOS)
-    for name in scenarios.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            scenarios.get_scenario(name)
+    """Every reference scenario is ported: nothing is refused, and an
+    unknown name is a KeyError."""
+    assert scenarios.NOT_PORTED == {}
+    assert set(scenarios.SCENARIOS) == set(jscenarios.SCENARIOS)
     with pytest.raises(KeyError):
         scenarios.get_scenario("nope")
 
 
 # ----------------------------------------------------------------- trace
 def test_trace_recorder_matches(tmp_path):
-    cfg = SimConfig(trace=True, trace_path=str(tmp_path / "t.jsonl"))
-    ours = events.TraceRecorder(cfg, torch.device("cpu"))
-    theirs = jevents.TraceRecorder(cfg)
+    """The port's and the reference's recorders on the same calls: the
+    same wall fields and events (timings aside), and each writes its own
+    trace file of the same 3 phases in the same order."""
+    recs = []
+    for name, mk in (("ours", lambda c: events.TraceRecorder(
+            c, torch.device("cpu"))), ("theirs", jevents.TraceRecorder)):
+        recs.append(mk(SimConfig(trace=True,
+                                 trace_path=str(tmp_path / f"{name}.jsonl"))))
+    ours, theirs = recs
     for rec in (ours, theirs):
         rec.begin_tick(2)
         rec.with_ctx(n_dirty=3)
@@ -205,7 +210,12 @@ def test_trace_recorder_matches(tmp_path):
         for e in theirs.events]
     ours.close()
     theirs.close()
-    assert len(open(tmp_path / "t.jsonl").read().splitlines()) == 3
+    phases = []
+    for name in ("ours", "theirs"):
+        lines = open(tmp_path / f"{name}.jsonl").read().splitlines()
+        assert len(lines) == 3, (name, lines)
+        phases.append([json.loads(ln)["phase"] for ln in lines])
+    assert phases[0] == phases[1] == ["divergence", "train", "solve"]
     off = events.TraceRecorder(SimConfig())
     assert off.start() is None and off.tick_wall_fields() == {}
     off.add("train", 1.0)

@@ -80,7 +80,11 @@ def test_port_imports_neither_jax_nor_repro():
         "assert len(mods) > 20, mods\n"
         "need = {'repro_torch.sim.run', 'repro_torch.sim.engine', "
         "'repro_torch.sim.executors', 'repro_torch.sim.shard.pool', "
-        "'repro_torch.sim.trace.events', 'repro_torch.stlf_federated'}\n"
+        "'repro_torch.sim.trace.events', 'repro_torch.stlf_federated', "
+        "'repro_torch.sim.faults', 'repro_torch.sim.snapshot', "
+        "'repro_torch.sim.replay', 'repro_torch.sim.trace.model', "
+        "'repro_torch.sim.trace.replay', 'repro_torch.sim.trace.tune', "
+        "'repro_torch.checkpoint.store'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
