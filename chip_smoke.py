@@ -13,8 +13,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
              compute products run on the tensor cores (HGMMA; HMMA/HGMMA
              ...TF32).
 3. kernels — holds each kernel against its plain PyTorch version on the
-             card (``alpha_combine`` to rtol/atol 1e-5 at six shapes, T
-             past 256 and S no multiple of 8 among them;
+             card (``alpha_combine`` to rtol/atol 1e-5 at nine shapes, T
+             past 256, S no multiple of 8 and the sharded pool's slabs
+             (1024, 128), (256, 32), (8, 2) among them;
              ``disagreement_counts`` and ``disagreement()`` exactly,
              fractional weights bit-equal on two launches and within
              rtol 1e-6, with both versions' error against a float64 sum;
@@ -71,8 +72,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
              round's own transfer inputs (rtol/atol 1e-5).
 4d. sim-async — the simulator's async, drift and fault/resume paths
              through the same CLI run (``--trace``), counted:
-             async-gossip (8 devices, the CLI's async defaults, 12
-             ticks) and feature-drift-async (8 devices, 8 ticks), where
+             async-gossip (8 devices, the CLI's async defaults, 6
+             ticks) and feature-drift-async (8 devices, 5 ticks), where
              no kernel of the port runs (every count stays 0); each
              tick's trained devices, gossip pairs, re-solve reason,
              dirty backlog and re-estimates (within the budget) and
@@ -80,7 +81,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
              trace and the autotuner's choice under it (its knobs must
              reproduce its predicted seconds and keep its guardrails).
              Then 'faulty'
-             (sync, 8 devices, 5 rounds): uninterrupted, then with
+             (sync, 8 devices, 4 rounds): uninterrupted, then with
              ``--checkpoint-every 1 --kill-after 2`` in a child process
              that SIGKILLs itself and ``--resume`` to the end, counted
              (``alpha_combine`` as ``alpha_combine_plan`` gives it, each
@@ -89,6 +90,23 @@ Phases, each of which raises on failure (the script then exits nonzero):
              runs agree, and the resumed rounds with the uninterrupted
              ones, on the decisions; the kernel against its plain
              version on the last round's transfer inputs.
+4e. sim-shard — the sharded device pool, counted: the default run cut
+             to 3 rounds through ``--mesh 1``, then at an emulated mesh
+             of 4 (every shard on this card) and on the single-device
+             pool through the Python API: equal decisions,
+             ``alpha_combine`` one slab a shard a round, the three
+             pools' transfers of one state within 1e-5; 'faulty' with
+             shard losses at an emulated mesh of 2 (6 devices, 4
+             rounds): devices recovered, SIGKILLed after round 1 in a
+             child and resumed to the straight run's decisions; the
+             pool's phases at N = 1024 (train, a 64-pair Algorithm-1
+             batch, the transfer, the accuracy sweep) at mesh 1 and an
+             emulated mesh of 8, timed, each shard's (1024, 128) slab
+             against the plain version (1e-5) and the transfer against
+             the single-device pool's; the packed solver
+             (``inner_impl="packed"``) against the structured one on the
+             main path's problem, capped at 3 x 300 steps (equal psi,
+             alpha within 1e-3), ms per Adam step of each.
 5. serve   — llama3.2-1b at full width (16 layers, seeded weights drawn
              on the card) with ``attention_impl="kernel"``: prefill of
              (4, 2048) and (1, 9216) prompts (the second past the 8192
@@ -221,12 +239,33 @@ SIM_TAGS = [f"{s}-n{n}-r{r}" for s, n, r in SIM_RUNS]
 # the simulator's async and drift runs on the card, through the CLI with
 # its defaults (8 devices, 100 samples, 30 SGD steps, solver 8 x 600 cold
 # / 150 warm, clocks (1, 2, 4), n_active // 4 gossip pairs): (scenario,
-# engine, devices, ticks), ticks cut for the script's time limit
-SIM_ASYNC_RUNS = [("async-gossip", "async-gossip", 8, 12),
-                  ("feature-drift-async", "async-gossip", 8, 8)]
+# engine, devices, ticks), ticks cut for the script's time limit (12 and
+# 8 ticks until phase 4e took its share)
+SIM_ASYNC_RUNS = [("async-gossip", "async-gossip", 8, 6),
+                  ("feature-drift-async", "async-gossip", 8, 5)]
 # the fault/resume run: sync 'faulty' at the CLI's fault defaults,
-# (devices, rounds, the round after which the first run is SIGKILLed)
-SIM_FAULTY = (8, 5, 2)
+# (devices, rounds, the round after which the first run is SIGKILLed);
+# 5 rounds until phase 4e took its share
+SIM_FAULTY = (8, 4, 2)
+# phase 4e, the sharded pool: the CLI's default run cut to 3 rounds
+# ((scenario, devices, rounds)) at mesh 1 through the CLI, then at an
+# emulated mesh of SHARD_MESH (every shard on the one card) and on the
+# single-device pool through the Python API
+SHARD_RUN = ("channel-drift", 8, 3)
+SHARD_MESH = 4
+# sync 'faulty' with shard losses at an emulated mesh of 2, the CLI's
+# defaults otherwise: (devices, rounds, the round after which the child
+# run is SIGKILLed)
+SHARD_FAULTY = (6, 4, 1)
+SHARD_FAULTY_CFG = dict(scenario="faulty", mesh=2, fault_shard_p=0.7,
+                        fault_crash_p=0.0)
+# the pool's phases at simulator scale (no bootstrap, no solve), as
+# benchmarks/sim_scale.py's dry rows take them: pool size, the emulated
+# mesh timed beside mesh 1, and the Algorithm-1 batch's pairs
+POOL_SCALE = (1024, 8, 64)
+# the packed solver against the structured one on the main path's
+# problem, capped: (max_outer, inner_steps)
+PACKED_SOLVE = (3, 300)
 # the small runs held GPU against CPU: (scenario, engine, seed), each with
 # targets in some round under the port's seeds
 SMALL_SIM = [("channel-drift", "sync", 0), ("device-churn", "sync", 2),
@@ -364,6 +403,35 @@ def read_counts(kernels):
     return {name: fn.launches for name, fn in kernels.items()}
 
 
+def alpha_device_us(ac, theta, alpha, calls=5, windows=3):
+    """Device microseconds a call of each alpha_combine kernel, from a
+    profiler window over ``calls`` calls that must hold as many kernel
+    records as the wrapper counted launches (a window that lost a record
+    is taken again, up to ``windows`` times)."""
+    from torch.profiler import ProfilerActivity, profile
+    ac.alpha_combine(theta, alpha)
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        before = ac.alpha_combine.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ac.alpha_combine(theta, alpha)
+            torch.cuda.synchronize()
+        counted = ac.alpha_combine.launches - before
+        us, seen = {}, 0
+        for e in prof.key_averages():
+            name = re.search(r"(alpha_combine_\w+_kernel|split_alpha\w*)",
+                             e.key)
+            if e.device_type == torch.autograd.DeviceType.CUDA and name:
+                us[name.group(1)] = e.self_device_time_total / calls
+                seen += e.count
+        if seen == counted:
+            return us
+    raise AssertionError(f"alpha_combine: the profiler saw {seen} kernel "
+                         f"records in {calls} calls, the wrapper counted "
+                         f"{counted}")
+
+
 def phase_kernels(ac, dg, report):
     """Each kernel against its plain version at the main path's shape and
     at the others the port is built for; timings of all three."""
@@ -372,8 +440,12 @@ def phase_kernels(ac, dg, report):
     rows = {"alpha_combine": [], "disagreement": []}
     # the main path's shape first, the simulator's scale, ragged P, an S
     # that is no multiple of 8, and T past one block's 256 targets
+    # T past one block's 256 targets; then the sharded pool's slabs
+    # (S = N_pad, T = N_pad / k): N = 1024 over 8 shards, 256 over 8, 8
+    # over 4 (phase 4e's runs)
     for s, t, p in [(10, 10, 48158), (256, 256, 48158), (7, 5, 1001),
-                    (13, 9, 48158), (300, 300, 1001), (64, 300, 48158)]:
+                    (13, 9, 48158), (300, 300, 1001), (64, 300, 48158),
+                    (1024, 128, 48158), (256, 32, 48158), (8, 2, 48158)]:
         theta = torch.randn(s, p, device=dev, generator=gen)
         alpha = torch.rand(s, t, device=dev, generator=gen)
         alpha /= alpha.sum(0, keepdim=True)
@@ -400,6 +472,8 @@ def phase_kernels(ac, dg, report):
                                iters),
             bound_ms=b_ms, bound_by=b_by, fp32_fma_bound_ms=fma_ms,
             split_products_ms=3 * 2 * s * t * p / PEAK_TF32_PER_S * 1e3)
+        if p == 48158:      # the device time of each kernel a call
+            row["device_us"] = alpha_device_us(ac, theta, alpha)
         rows["alpha_combine"].append(row)
     # all rows valid at the timed shapes, as on the main path (there
     # torch.cdist with p=0 counts the same mismatches); masks after them
@@ -461,6 +535,9 @@ def phase_kernels(ac, dg, report):
                 extra = (f" (the split's three TF32 products "
                          f"{r['split_products_ms']:.4f} ms; fp32-FMA bound "
                          f"{r['fp32_fma_bound_ms']:.4f} ms)")
+            if "device_us" in r and name == "alpha_combine":
+                extra += "; device us a call " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in r["device_us"].items())
             if "main_call_ms" in r:
                 extra = (f"; disagreement(preds) {r['main_call_ms']:.4f} "
                          f"ms, cdist/M {r['library_normalized_ms']:.4f} ms")
@@ -1925,6 +2002,334 @@ def phase_sim_faulty(ac, counted, report, dev="cuda"):
     return report["sim_faulty"]
 
 
+def _transfers_apart(pools, params, alpha, psi):
+    """Each pool's transfer of the same inputs against the first's:
+    {name: max abs difference}, and whether every leaf is within
+    rtol/atol 1e-5."""
+    outs = {name: pool.transfer(params, alpha, psi)
+            for name, pool in pools.items()}
+    first = next(iter(outs.values()))
+    gaps, ok = {}, True
+    for name, out in outs.items():
+        gaps[name] = max(float((out[k] - first[k]).abs().max())
+                         for k in first)
+        ok = ok and all(torch.allclose(out[k], first[k], rtol=1e-5,
+                                       atol=1e-5) for k in first)
+    return gaps, ok
+
+
+def _sharded_launches(ac, pool_size, mesh):
+    """alpha_combine kernels one transfer launches: one slab a shard,
+    each as ``alpha_combine_plan`` gives it (the single-device pool: one
+    call at (N, N))."""
+    if mesh == 0:
+        return ac._plan(pool_size, pool_size)[0]
+    s = pool_size + (-pool_size % mesh)
+    return mesh * ac._plan(s, s // mesh)[0]
+
+
+def phase_sim_shard(ac, counted, report, dev="cuda"):
+    """The sharded device pool (``SimConfig.mesh``), counted.  (1) The
+    CLI's default run cut to 3 rounds through ``--mesh 1``, then the same
+    config through the Python API at an emulated mesh of 4 (every shard
+    on this card) and on the single-device pool: the decisions equal,
+    ``alpha_combine`` launched one slab a shard a round (as
+    ``alpha_combine_plan`` gives it), and the three pools' transfers of
+    the local run's final state within 1e-5.  (2) 'faulty' with shard
+    losses at an emulated mesh of 2: devices recovered; SIGKILLed after a
+    round in a child and resumed, agreeing with the uninterrupted run on
+    every decision."""
+    import os
+    import signal
+    from repro_torch.sim import SimulationEngine
+    from repro_torch.sim import run as sim_run
+    from repro_torch.sim.metrics import read_jsonl
+    from repro_torch.sim.shard import LocalPool
+
+    out_dir = ROOT / "build" / "sim"
+    scenario, n, rounds = SHARD_RUN
+    tag = f"{scenario}-n{n}-r{rounds}"
+    runs = {}
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    eng, rows = sim_run.simulate([
+        "--scenario", scenario, "--devices", str(n), "--rounds",
+        str(rounds), "--mesh", "1", "--out",
+        str(out_dir / f"{tag}-mesh1.jsonl"), "--trace", "--quiet",
+        "--device", dev])
+    runs["mesh 1 (CLI)"] = (1, eng, rows, time.perf_counter() - t0,
+                            read_counts(counted))
+    for name, mesh in ((f"mesh {SHARD_MESH} (emulated)", SHARD_MESH),
+                       ("local", 0)):
+        cfg = dataclasses.replace(
+            eng.cfg, mesh=mesh,
+            log_path=str(out_dir / f"{tag}-mesh{mesh}.jsonl"))
+        zero_counts(counted)
+        t0 = time.perf_counter()
+        e = SimulationEngine(cfg, device=dev, emulate=mesh > 1)
+        r = e.run()
+        runs[name] = (mesh, e, r, time.perf_counter() - t0,
+                      read_counts(counted))
+    local = runs["local"][2]
+    out = {"runs": {}}
+    for name, (mesh, e, r, wall, launches) in runs.items():
+        _check_rows(f"{tag} {name}", r, rounds)
+        want = rounds * _sharded_launches(ac, n, mesh)
+        differ = _decisions_differ(r, local)
+        floats = _floats_apart(r, local)
+        for row in r:
+            log(f"[sim-shard] {tag} {name} ({e.pool.name}) round "
+                f"{row['round']}: sources {row['n_sources']}, targets "
+                f"{row['n_targets']}, resolve {row['resolve_reason']}; "
+                f"{_wall_line(row)}")
+        log(f"[sim-shard] {tag} {name}: {wall:.3f} s; launches {launches}"
+            f" (alpha_combine: {want} wanted); decisions "
+            f"{'equal to' if not differ else 'differ from'} the local "
+            f"run's {differ or ''}; floats apart by {floats}")
+        if launches["alpha_combine"] != want or any(
+                v for k, v in launches.items() if k != "alpha_combine"):
+            raise AssertionError(f"sim-shard {tag} {name}: launches "
+                                 f"{launches}, alpha_combine should be "
+                                 f"{want}")
+        if differ:
+            raise AssertionError(f"sim-shard {tag} {name}: decisions "
+                                 f"differ from the local run at {differ}")
+        out["runs"][name] = dict(
+            pool=e.pool.name, wall_s=wall, launches=launches,
+            floats_apart=floats, phases={k: [x[k] for x in r] for k in (
+                "wall_time_s", "train_wall_s", "div_wall_s",
+                "solver_wall_s", "transfer_wall_s", "eval_wall_s")})
+    # the three pools' transfers of the local run's final state
+    le = runs["local"][1]
+    gaps, ok = _transfers_apart(
+        {"local": LocalPool(le), "mesh 1": runs["mesh 1 (CLI)"][1].pool,
+         f"mesh {SHARD_MESH}": runs[f"mesh {SHARD_MESH} (emulated)"][1].pool},
+        le.state.params, le.state.alpha, le.state.psi)
+    log(f"[sim-shard] {tag}: transfers of the local run's final state, "
+        f"max abs difference from the local pool's: {gaps}")
+    if not ok:
+        raise AssertionError(f"sim-shard {tag}: the sharded transfers "
+                             f"differ from the local one by {gaps}")
+    out["transfer_gaps"] = gaps
+
+    # (2) shard losses, recovery, kill and resume at an emulated mesh 2
+    n_f, rounds_f, kill = SHARD_FAULTY
+    tag_f = f"faulty-n{n_f}-r{rounds_f}-mesh{SHARD_FAULTY_CFG['mesh']}"
+    straight_log, log_path = out_dir / f"{tag_f}.jsonl", \
+        out_dir / f"{tag_f}-resumed.jsonl"
+    ckpt = Path(f"{log_path}.ckpt")
+    log_path.unlink(missing_ok=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    from repro_torch.sim import SimConfig
+    cfg = SimConfig(devices=n_f, rounds=rounds_f, trace=True,
+                    log_path=str(straight_log), **SHARD_FAULTY_CFG)
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    straight = SimulationEngine(cfg, device=dev, emulate=True).run()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counted)
+    per_round = _sharded_launches(ac, n_f, cfg.mesh)
+    for r in straight:
+        log(f"[sim-shard] {tag_f} round {r['round']}: events "
+            f"{r['events']}; recovered {r['n_recovered']}, resolve "
+            f"{r['resolve_reason']}; {_wall_line(r)}")
+    _check_rows(tag_f, straight, rounds_f)
+    recovered = sum(r["n_recovered"] for r in straight)
+    if not recovered:
+        raise AssertionError(f"sim-shard {tag_f}: no device recovered")
+    if launches["alpha_combine"] != rounds_f * per_round:
+        raise AssertionError(f"sim-shard {tag_f}: launches {launches}, "
+                             f"alpha_combine should be "
+                             f"{rounds_f * per_round}")
+    child_cfg = dict(dataclasses.asdict(cfg), log_path=str(log_path),
+                     checkpoint_every=1, ckpt_dir=str(ckpt),
+                     kill_after=kill)
+    code = ("import json, sys; sys.path.insert(0, 'src'); "
+            "from repro_torch.sim import SimConfig, SimulationEngine; "
+            "c = json.loads(sys.argv[1]); "
+            "c['tick_periods'] = tuple(c['tick_periods']); "
+            "SimulationEngine(SimConfig(**c), device=sys.argv[2], "
+            "emulate=True).run()")
+    t0 = time.perf_counter()
+    killed = subprocess.run(
+        [sys.executable, "-c", code, json.dumps(child_cfg), dev],
+        cwd=str(ROOT), env=dict(os.environ), capture_output=True,
+        text=True, timeout=900)
+    killed_s = time.perf_counter() - t0
+    prefix = read_jsonl(str(log_path))
+    if killed.returncode != -signal.SIGKILL or len(prefix) != kill + 1:
+        raise AssertionError(
+            f"sim-shard {tag_f}: the kill_after run exited "
+            f"{killed.returncode} with {len(prefix)} rows: "
+            f"{killed.stderr[-2000:]}")
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    SimulationEngine(dataclasses.replace(
+        cfg, log_path=str(log_path), checkpoint_every=1,
+        ckpt_dir=str(ckpt), resume=True), device=dev, emulate=True).run()
+    resumed_s = time.perf_counter() - t0
+    resumed_launches = read_counts(counted)
+    logged = read_jsonl(str(log_path))
+    _check_rows(f"{tag_f} resumed", logged, rounds_f)
+    after = _decisions_differ(logged, straight)
+    log(f"[sim-shard] {tag_f}: {recovered} devices recovered; straight "
+        f"{wall:.3f} s, killed child {killed_s:.3f} s, resumed "
+        f"{resumed_s:.3f} s; the stitched log "
+        f"{'agrees' if not after else 'differs at ' + str(after)} with "
+        f"the straight run on the decisions, floats apart by "
+        f"{_floats_apart(logged, straight)}; launches {launches} "
+        f"straight, {resumed_launches} resumed")
+    if after:
+        raise AssertionError(f"sim-shard {tag_f}: the resumed run differs "
+                             f"from the straight one at {after}")
+    want = (rounds_f - kill - 1) * per_round
+    if resumed_launches["alpha_combine"] != want:
+        raise AssertionError(f"sim-shard {tag_f} resumed: launches "
+                             f"{resumed_launches}, alpha_combine should be "
+                             f"{want}")
+    out["faulty"] = dict(wall_s=wall, killed_child_s=killed_s,
+                         resumed_s=resumed_s, recovered=recovered,
+                         launches=launches,
+                         resumed_launches=resumed_launches,
+                         events=[r["events"] for r in straight],
+                         reasons=[r["resolve_reason"] for r in straight])
+    report["sim_shard"] = out
+    return out
+
+
+def phase_pool_scale(ac, counted, report, dev="cuda"):
+    """The pool's phases at simulator scale, as benchmarks/sim_scale.py's
+    dry rows take them (no bootstrap, no solve): the sim's default
+    100 samples and 30 SGD steps at N devices, through the sharded pool
+    at mesh 1 and at an emulated mesh of k, each phase timed twice on
+    the host clock up to a synchronize (the first call carries cuDNN's
+    algorithm choice), counted: training, a 64-pair Algorithm-1 batch,
+    the transfer (one ``alpha_combine_slab`` of (N, N / k) a shard) and
+    the accuracy sweep.  Each shard's slab against the plain version
+    (rtol/atol 1e-5), and the sharded transfer against the single-device
+    pool's."""
+    from repro_torch.fl.client import sample_train_indices
+    from repro_torch.nn.param import flatten_to_vector
+    from repro_torch.rng import generator
+    from repro_torch.sim import SimConfig, SimulationEngine
+    from repro_torch.sim.shard import LocalPool, ShardedPool
+
+    n, k, npairs = POOL_SCALE
+    t0 = time.perf_counter()
+    eng = SimulationEngine(SimConfig(scenario="static", devices=n,
+                                     rounds=1, mesh=1), device=dev)
+    build_s = time.perf_counter() - t0
+    st, cfg = eng.state, eng.cfg
+    pools = {"mesh 1": eng.pool,
+             f"mesh {k} (emulated)": ShardedPool(eng, k, emulate=True)}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = {name: v + 0.01 * torch.randn(v.shape, device=dev,
+                                           generator=gen)
+              for name, v in st.params.items()}       # distinct devices
+    # every other device a target, so every shard owns targets; every
+    # column a distinct random mixture of the sources, so every shard's
+    # slab has distinct non-zero columns
+    psi = np.zeros(n)
+    psi[1::2] = 1.0
+    alpha = np.zeros((n, n))
+    alpha[psi == 0] = np.random.default_rng(11).random((n - n // 2, n))
+    alpha /= alpha.sum(0, keepdims=True)
+    pairs = np.stack([np.arange(npairs), np.arange(npairs) + n // 2], 1)
+    draws = sample_train_indices(st.clients, generator(1),
+                                 iters=cfg.train_iters, batch=cfg.batch)
+    phases = {
+        "train": lambda pool: pool.train(params, st.clients, None,
+                                         st.active, draws=draws),
+        f"divergence_{npairs}pairs": lambda pool: pool.update_divergences(
+            st.div_hat, st.clients, 1, pairs),
+        "transfer": lambda pool: pool.transfer(params, alpha, psi),
+        "accuracies": lambda pool: pool.accuracies(params, st.clients)}
+    rows = {}
+    for pname, pool in pools.items():
+        for phase, fn in phases.items():
+            times = []
+            zero_counts(counted)
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(pool)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            launches = read_counts(counted)
+            want = 2 * _sharded_launches(ac, n, pool.n_shards) \
+                if phase == "transfer" else 0
+            rows[f"{pname} {phase}"] = dict(first_s=times[0],
+                                            steady_s=times[1],
+                                            launches=launches)
+            log(f"[pool-scale] n={n} {pname} {phase}: first "
+                f"{times[0]:.4f} s, steady {times[1]:.4f} s; launches "
+                f"{launches} (alpha_combine: {want} wanted)")
+            if launches["alpha_combine"] != want or any(
+                    v for kn, v in launches.items() if kn != "alpha_combine"):
+                raise AssertionError(f"pool-scale {pname} {phase}: "
+                                     f"launches {launches}")
+    # each shard's slab against the plain version, and the sharded
+    # transfer against the single-device pool's
+    flat = flatten_to_vector(params, lead=1).contiguous()
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
+    blk = n // k
+    slab_err = 0.0
+    for s in range(k):
+        cols = a[:, s * blk:(s + 1) * blk]
+        kern = ac.alpha_combine_slab(flat, cols)
+        plain = ac.alpha_combine_plain(flat, cols.contiguous())
+        slab_err = max(slab_err, float((kern - plain).abs().max()))
+        if not torch.allclose(kern, plain, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"pool-scale: shard {s}'s slab ({n}, "
+                                 f"{blk}) differs from the plain version")
+    gaps, ok = _transfers_apart(dict(local=LocalPool(eng), **pools),
+                                params, alpha, psi)
+    log(f"[pool-scale] n={n}: build {build_s:.1f} s; {k} slabs ({n}, "
+        f"{blk}, {flat.shape[1]}) vs plain: max abs err {slab_err:.3g}; "
+        f"transfers vs the local pool's: {gaps}")
+    if not ok:
+        raise AssertionError(f"pool-scale: the sharded transfers differ "
+                             f"from the local one by {gaps}")
+    report["pool_scale"] = dict(n=n, mesh=k, build_s=build_s, phases=rows,
+                                slab_max_abs_err=slab_err,
+                                transfer_gaps=gaps)
+    del eng, pools, params, flat
+    torch.cuda.empty_cache()
+    return report["pool_scale"]
+
+
+def phase_packed_solver(state, report, dev="cuda"):
+    """``solve_stlf(inner_impl="packed")`` (the gather / scatter-add
+    evaluator) against the structured default on the main path's
+    problem, capped: equal psi, alpha within 1e-3; ms per Adam step of
+    each on the host clock."""
+    from repro_torch.core.problem import STLFProblem
+    from repro_torch.core.solver import solve_stlf
+
+    prob = STLFProblem(state.bounds, state.energy)
+    max_outer, steps = PACKED_SOLVE
+    res = {impl: solve_stlf(prob, max_outer=max_outer, inner_steps=steps,
+                            inner_impl=impl, device=dev)
+           for impl in ("structured", "packed")}
+    a, b = res["structured"], res["packed"]
+    ms = {impl: r.solve_time_s / max(r.inner_steps, 1) * 1e3
+          for impl, r in res.items()}
+    gap = float(np.abs(a.alpha - b.alpha).max())
+    log(f"[solver] packed vs structured at N={prob.n} ({max_outer} x "
+        f"{steps}): psi {'equal' if np.array_equal(a.psi, b.psi) else 'differ'}"
+        f", alpha max abs gap {gap:.3g}; ms per Adam step: structured "
+        f"{ms['structured']:.3f} ({a.inner_steps} steps, pack "
+        f"{a.pack_time_s * 1e3:.2f} ms), packed {ms['packed']:.3f} "
+        f"({b.inner_steps} steps, pack {b.pack_time_s * 1e3:.2f} ms)")
+    if not (np.array_equal(a.psi, b.psi) and gap <= 1e-3):
+        raise AssertionError("solve_stlf: the packed path decides "
+                             "otherwise than the structured one")
+    report["packed_solver"] = dict(ms_per_step=ms, alpha_gap=gap,
+                                   steps={i: r.inner_steps
+                                          for i, r in res.items()})
+    return report["packed_solver"]
+
+
 def phase_small_sim(report, devs=("cuda", "cpu")):
     """Small runs (sync and async) on the GPU against the port on the CPU
     (which the CPU tests hold against the JAX package), on the port's own
@@ -2239,6 +2644,14 @@ def main() -> int:
     faulty = phase_sim_faulty(ac, counted, report)
     report["sim_4d_s"] = time.perf_counter() - t0
     log(f"[sim] phase 4d: {report['sim_4d_s']:.1f} s")
+    # 4e. the sharded pool: runs, shard loss and resume, the pool's
+    # phases at simulator scale, counted; the packed solver
+    t0 = time.perf_counter()
+    shard = phase_sim_shard(ac, counted, report)
+    scale = phase_pool_scale(ac, counted, report)
+    phase_packed_solver(state, report)
+    report["sim_4e_s"] = time.perf_counter() - t0
+    log(f"[sim] phase 4e: {report['sim_4e_s']:.1f} s")
 
     # 5. the serve path at full width, counted
     serve_launches, model, params = phase_serve(counted, report)
@@ -2288,7 +2701,20 @@ def main() -> int:
         **{f"sim faulty-n{SIM_FAULTY[0]}-r{SIM_FAULTY[1]}":
            faulty["launches"]["alpha_combine"],
            f"sim faulty-n{SIM_FAULTY[0]}-r{SIM_FAULTY[1]} resumed":
-           faulty["resumed_launches"]["alpha_combine"]})
+           faulty["resumed_launches"]["alpha_combine"]},
+        **{f"sim-shard {SHARD_RUN[0]}-n{SHARD_RUN[1]}-r{SHARD_RUN[2]} "
+           f"{name}": r["launches"]["alpha_combine"]
+           for name, r in shard["runs"].items()},
+        **{f"sim-shard faulty-n{SHARD_FAULTY[0]}-r{SHARD_FAULTY[1]}-mesh"
+           f"{SHARD_FAULTY_CFG['mesh']}": shard["faulty"]["launches"][
+               "alpha_combine"],
+           f"sim-shard faulty-n{SHARD_FAULTY[0]}-r{SHARD_FAULTY[1]}-mesh"
+           f"{SHARD_FAULTY_CFG['mesh']} resumed": shard["faulty"][
+               "resumed_launches"]["alpha_combine"]},
+        **{f"pool-scale n={POOL_SCALE[0]} {name} (2 calls)":
+           r["launches"]["alpha_combine"]
+           for name, r in scale["phases"].items()
+           if name.endswith("transfer")})
     log("[report] " + json.dumps(report))
     log(smi)
     log(json.dumps({"kernels": kernels}))

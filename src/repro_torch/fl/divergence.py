@@ -127,20 +127,22 @@ def _pad_rows(a, pad: int):
     return np.concatenate([a, np.repeat(a[:1], pad, axis=0)])
 
 
-def chunked_pair_lanes(pi, pj, lanes, width: int, call) -> np.ndarray:
+def chunked_pair_lanes(pi, pj, lanes, width: int, call, *,
+                       pad_partial: bool = False) -> np.ndarray:
     """Drive ``call(ci, cj, clanes) -> (width or fewer,) values`` over
     fixed-width chunks of the pair axis.  When there is more than one
     chunk, a short last chunk is padded with repeats of its first lane
     (outputs discarded), so every call has one shape; a single chunk runs
-    at its natural size.  ``lanes`` is any per-pair array (keys or draws)
-    aligned with ``pi``/``pj``."""
+    at its natural size unless ``pad_partial`` (the sharded pool, whose
+    lanes must divide the mesh) pads it too.  ``lanes`` is any per-pair
+    array (keys or draws) aligned with ``pi``/``pj``."""
     npairs = len(pi)
     out = np.zeros(npairs)
     for c0 in range(0, npairs, width):
         ci = pi[c0:c0 + width]
         cj = pj[c0:c0 + width]
         cl = lanes[c0:c0 + width]
-        pad = (width - len(ci)) if npairs > width else 0
+        pad = (width - len(ci)) if (pad_partial or npairs > width) else 0
         if pad:
             ci, cj, cl = (_pad_rows(a, pad) for a in (ci, cj, cl))
         vals = call(ci, cj, cl)
@@ -154,8 +156,8 @@ def estimate_divergences(clients: StackedClients, seed: Optional[int], *,
                          tau: int = 4, T: int = 25, batch: int = 10,
                          lr: float = 0.01, pairs=None, pair_chunk: int = 256,
                          keys=None, h0: Optional[Params] = None,
-                         draws: Optional[torch.Tensor] = None
-                         ) -> np.ndarray:
+                         draws: Optional[torch.Tensor] = None,
+                         values_fn=None) -> np.ndarray:
     """Algorithm 1: returns the symmetric (N, N) matrix of empirical
     d_H estimates (diagonal 0).
 
@@ -170,7 +172,16 @@ def estimate_divergences(clients: StackedClients, seed: Optional[int], *,
     the given ``pairs`` order) and classifier init, overriding the
     positional ``pair_keys`` schedule and the init drawn from ``seed``.
     ``draws``: explicit (npairs, tau*T, 2, batch) row indices, overriding
-    the keys.  When the overrides cover everything ``seed`` may be None."""
+    the keys.  When the overrides cover everything ``seed`` may be None.
+
+    ``values_fn``: optional executor for the per-pair values,
+    ``fn(h0, clients, pi, pj, keys, tau=, T=, batch=, lr=, draws=) ->
+    (npairs,)`` with exactly one of ``keys`` / ``draws`` given — the
+    placement hook (the sharded pool's).  The contract: treat (pi, pj,
+    keys or draws) as opaque aligned lanes, return one value per lane in
+    order.  The key schedule, ``h0`` and the canonical (min, max) pair
+    order are fixed HERE, so a values_fn that keeps lanes intact
+    reproduces the local values."""
     n = clients.n_devices
     if pairs is None:
         pi, pj = np.triu_indices(n, k=1)
@@ -192,16 +203,22 @@ def estimate_divergences(clients: StackedClients, seed: Optional[int], *,
         if keys is None and draws is None:
             keys = pair_keys(seed_pairs, len(pi), pair_chunk)
 
-    def call(ci, cj, cl):
-        if draws is None:
+    if values_fn is not None:
+        d = np.asarray(values_fn(h0, clients, pi, pj,
+                                 keys if draws is None else None, tau=tau,
+                                 T=T, batch=batch, lr=lr, draws=draws))
+    else:
+        def call(ci, cj, cl):
+            if draws is None:
+                return pairwise_divergence_values(
+                    h0, clients, ci, cj, cl, tau=tau, T=T, batch=batch,
+                    lr=lr)
             return pairwise_divergence_values(
-                h0, clients, ci, cj, cl, tau=tau, T=T, batch=batch, lr=lr)
-        return pairwise_divergence_values(
-            h0, clients, ci, cj, tau=tau, T=T, batch=batch, lr=lr,
-            draws=cl)
+                h0, clients, ci, cj, tau=tau, T=T, batch=batch, lr=lr,
+                draws=cl)
 
-    d = chunked_pair_lanes(pi, pj, keys if draws is None else draws,
-                           pair_chunk, call)
+        d = chunked_pair_lanes(pi, pj, keys if draws is None else draws,
+                               pair_chunk, call)
     out = np.zeros((n, n))
     out[pi, pj] = d
     out[pj, pi] = d
@@ -212,22 +229,23 @@ def update_divergences(div: np.ndarray, clients: StackedClients,
                        seed: Optional[int], pairs, *, tau: int = 4,
                        T: int = 25, batch: int = 10, lr: float = 0.01,
                        ema=0.0, keys=None, h0: Optional[Params] = None,
-                       draws: Optional[torch.Tensor] = None) -> np.ndarray:
+                       draws: Optional[torch.Tensor] = None,
+                       values_fn=None) -> np.ndarray:
     """Refresh ``div`` on the given (P, 2) pairs only and return the
     merged copy (Algorithm 1 run just for those links).
 
     ``ema``: weight given to the OLD value when merging — scalar or
     per-pair (P,) array, applied in the symmetric scatter
     ``out[i, j] = ema * out[i, j] + (1 - ema) * fresh[i, j]``; 0
-    replaces outright.  ``keys``, ``h0`` and ``draws`` are forwarded to
-    ``estimate_divergences``."""
+    replaces outright.  ``keys``, ``h0``, ``draws`` and ``values_fn``
+    are forwarded to ``estimate_divergences``."""
     pairs = np.atleast_2d(np.asarray(pairs, np.int64))
     out = np.array(div, float, copy=True)
     if pairs.size == 0:
         return out
     fresh = estimate_divergences(clients, seed, tau=tau, T=T, batch=batch,
                                  lr=lr, pairs=pairs, keys=keys, h0=h0,
-                                 draws=draws)
+                                 draws=draws, values_fn=values_fn)
     pi, pj = pairs[:, 0], pairs[:, 1]        # vectorized symmetric scatter
     w = np.broadcast_to(np.asarray(ema, float), pi.shape)
     out[pi, pj] = w * out[pi, pj] + (1.0 - w) * fresh[pi, pj]

@@ -246,14 +246,12 @@ alpha_combine_tc_kernel(const float* __restrict__ theta,
 
 cudaError_t launch(const float* theta, const float* alpha, float* out, int S,
                    int T, long long P, cudaStream_t st) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        alpha_combine_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  // set on every call: the attribute is per device, and the caller's
+  // current device may change between calls
+  const cudaError_t err = cudaFuncSetAttribute(
+      alpha_combine_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return err;
   alpha_combine_tc_kernel<<<(unsigned)((P + BP - 1) / BP), THREADS,
                             SMEM_BYTES, st>>>(theta, alpha, out, S, T, P);
   return cudaGetLastError();
@@ -559,18 +557,15 @@ long long split_bytes(int S, int T) {
 
 cudaError_t launch(const float* theta, const float* alpha, float* out, int S,
                    int T, long long P, uint32_t* hl, cudaStream_t st) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        alpha_combine_wgmma_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  // set on every call: the attribute is per device (see tc::launch)
+  cudaError_t err = cudaFuncSetAttribute(
+      alpha_combine_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
   const unsigned ty = (unsigned)((T + TB - 1) / TB);
   split_alpha_kernel<<<dim3((unsigned)((S + KW - 1) / KW), ty, SPLIT_PARTS),
                        THREADS, 0, st>>>(alpha, hl, S, T);
-  const cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   alpha_combine_wgmma_kernel<<<dim3((unsigned)((P + BP - 1) / BP), ty),
                                THREADS, SMEM_BYTES, st>>>(theta, hl, out, S,

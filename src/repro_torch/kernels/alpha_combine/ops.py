@@ -92,9 +92,11 @@ def alpha_combine(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
         return out.zero_()
     launches, nbytes = _plan(s, t_)
     scratch = theta.new_empty(nbytes, dtype=torch.uint8) if nbytes else None
-    err = _entry()(theta.data_ptr(), alpha.data_ptr(), out.data_ptr(), s,
-                   t_, p, None if scratch is None else scratch.data_ptr(),
-                   torch._C._cuda_getCurrentRawStream(theta.get_device()))
+    with torch.cuda.device(theta.device):   # the launch's current device
+        err = _entry()(theta.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+                       s, t_, p,
+                       None if scratch is None else scratch.data_ptr(),
+                       torch._C._cuda_getCurrentRawStream(theta.get_device()))
     if err:
         _build.check("alpha_combine", err)
     alpha_combine.launches += launches
@@ -102,6 +104,17 @@ def alpha_combine(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 
 alpha_combine.launches = 0
+
+
+def alpha_combine_slab(theta: torch.Tensor,
+                       alpha_cols: torch.Tensor) -> torch.Tensor:
+    """Per-shard transfer slab: the FULL flattened source stack against a
+    block of target columns.  theta (S, P), alpha_cols (S, T_loc) ->
+    (T_loc, P) float32, through ``alpha_combine`` (the same kernels, any
+    S and T; the same plain version for CPU tensors; its launches counted
+    on ``alpha_combine.launches``).  This is the sharded pool's transfer:
+    each shard gathers theta once and mixes only its own targets."""
+    return alpha_combine(theta, alpha_cols.float().contiguous())
 
 
 def alpha_combine_tree(params_stack: Dict[str, torch.Tensor],

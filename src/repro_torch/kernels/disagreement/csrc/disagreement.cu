@@ -265,15 +265,13 @@ struct Launch {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
   }
+  // set on every call: the attribute is per device, and the caller's
+  // current device may change between calls
   static cudaError_t allow_smem() {
-    static bool done = false;
-    if (done) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(
+    return cudaFuncSetAttribute(
         disagreement_kernel<BN, BM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)(STAGES * sizeof(Stage<BN, BM>)));
-    done = err == cudaSuccess;
-    return err;
   }
 };
 

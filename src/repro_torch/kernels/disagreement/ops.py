@@ -117,10 +117,11 @@ def _launch(preds: torch.Tensor, valid: Optional[torch.Tensor],
         return out.zero_()
     index = preds.get_device()
     bn, cl = _plan(n, m, index)
-    err = _entry()(preds.data_ptr(),
-                   None if valid is None else valid.data_ptr(),
-                   out.data_ptr(), n, m, bn, cl, normalize,
-                   torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):         # the launch's current device
+        err = _entry()(preds.data_ptr(),
+                       None if valid is None else valid.data_ptr(),
+                       out.data_ptr(), n, m, bn, cl, normalize,
+                       torch._C._cuda_getCurrentRawStream(index))
     if err:
         _build.check("disagreement", err)
     disagreement_counts.launches += 1

@@ -133,13 +133,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.zero_()
     launch = _build.entry("flash_attention", "flash_attention_fwd",
                           _SIGNATURE)
-    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, h, kv, sq, sk, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3],
-                 int(causal), window or 0, 1.0 / d ** 0.5,
-                 _DTYPES[q.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):      # the launch's current device
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), b, h, kv, sq, sk, d,
+                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     *out.stride()[:3],
+                     int(causal), window or 0, 1.0 / d ** 0.5,
+                     _DTYPES[q.dtype],
+                     torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err)
     flash_attention.launches += 1
     return out

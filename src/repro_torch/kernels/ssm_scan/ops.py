@@ -148,14 +148,16 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels, floats = _plan(b, l, h, dk, dv, chunk)
     scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     launch = _build.entry("ssm_scan", "ssm_scan_fwd", _SIGNATURE)
-    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-                 u.data_ptr(), 0 if s0 is None else s0.data_ptr(),
-                 y.data_ptr(), s_fin.data_ptr(), scratch.data_ptr(),
-                 b, l, h, dk, dv, chunk, int(variant == "rwkv"),
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *log_w.stride()[:3], *y.stride()[:3],
-                 *(_BF16[t.dtype] for _, t in tensors),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):           # the launch's current device
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     log_w.data_ptr(), u.data_ptr(),
+                     0 if s0 is None else s0.data_ptr(),
+                     y.data_ptr(), s_fin.data_ptr(), scratch.data_ptr(),
+                     b, l, h, dk, dv, chunk, int(variant == "rwkv"),
+                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     *log_w.stride()[:3], *y.stride()[:3],
+                     *(_BF16[t.dtype] for _, t in tensors),
+                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check("ssm_scan", err)
     gla_chunked.launches += kernels
     return y, s_fin

@@ -15,9 +15,13 @@ resume crash-consistently (``snapshot``).
 Entry points:
   python -m repro_torch.sim.run --scenario channel-drift --devices 8
   python -m repro_torch.sim.replay --model run.trace.jsonl
+  python -m repro_torch.sim.run --mesh 1 ...   (the sharded pool)
   SimulationEngine(SimConfig(...), device="cpu").run()
+  SimulationEngine(SimConfig(mesh=4, ...), device="cpu", emulate=True)
 
-Not ported yet: the sharded pool (``mesh``, ROADMAP.md queue 1 item 5).
+The pool axis runs on one device (``LocalPool``) or sharded over a
+``mesh`` of local devices (``ShardedPool``), k shards emulated on one
+device when the engine is built with ``emulate=True``.
 """
 from repro_torch.sim.clock import DeviceClocks  # noqa: F401
 from repro_torch.sim.engine import SimConfig, SimulationEngine  # noqa: F401

@@ -22,9 +22,10 @@ The engine owns what they share:
   - the JSONL metrics logger
 
 ``SimConfig`` keeps every field and default of the reference's, so a
-reference config maps over one to one; only ``mesh`` (the sharded pool,
-ROADMAP.md queue 1 item 5) is refused.  The engine runs on ``device``
-(the GPU unless the caller passes "cpu").  Its seeds take the place of
+reference config maps over one to one; ``mesh`` k >= 1 shards the pool
+over k local devices (``shard.ShardedPool``), or over k shards emulated
+on ``device`` when the engine is built with ``emulate=True``.  The
+engine runs on ``device`` (the GPU unless the caller passes "cpu").  Its seeds take the place of
 the reference's PRNG keys; ``params0`` (numpy, e.g. the reference
 engine's initial parameters) and ``draws`` (a draws provider, see
 ``executors``) inject the reference's initialization and row draws
@@ -87,7 +88,7 @@ if TYPE_CHECKING:
 @dataclasses.dataclass
 class SimConfig:
     """The reference's SimConfig, field for field (its comments describe
-    the reference's features; the port refuses only ``mesh``)."""
+    the reference's features; all of them are ported)."""
     scenario: str = "static"
     devices: int = 8
     rounds: int = 5
@@ -97,11 +98,11 @@ class SimConfig:
     spares: int = -1             # -1: let the scenario choose
     # execution layer (repro_torch.sim.executors)
     engine: str = "sync"
-    # device-pool backend (repro.sim.shard.pool): 0 = single-host
-    # LocalPool (the bit-for-bit historical path); k >= 1 = ShardedPool
-    # with the pool axis over a k-shard 'devices' mesh (k=1 runs the full
-    # sharded pipeline on one device — parity-testable anywhere; k>1
-    # needs that many local/emulated jax devices)
+    # device-pool backend (repro_torch.sim.shard.pool): 0 = single-device
+    # LocalPool; k >= 1 = ShardedPool with the pool axis over a k-shard
+    # 'devices' mesh (k=1 runs the full sharded pipeline on one device —
+    # parity-testable anywhere; k>1 needs that many local devices, or
+    # SimulationEngine(..., emulate=True))
     mesh: int = 0
     #: async subset-gather training (LocalPool): gather the eligible
     #: lanes into a compact batch instead of masked no-op SGD over the
@@ -311,17 +312,15 @@ class SimConfig:
         if self.train_gather_floor < 1:
             raise ValueError(f"train_gather_floor must be >= 1, got "
                              f"{self.train_gather_floor}")
-        if self.mesh:
-            raise NotImplementedError(
-                f"mesh={self.mesh}: the sharded device pool is not ported "
-                f"to repro_torch yet (ROADMAP.md queue 1 item 5 (sharded "
-                f"pool))")
 
 
 class SimulationEngine:
     def __init__(self, cfg: SimConfig, *, device: DeviceLike = None,
                  params0: Optional[Mapping[str, np.ndarray]] = None,
-                 draws: Optional["DrawsProvider"] = None):
+                 draws: Optional["DrawsProvider"] = None,
+                 emulate: bool = False):
+        """``emulate``: a ``cfg.mesh`` of k shards all on ``device``
+        (asked for explicitly; a mesh never emulates by itself)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.draws = draws
@@ -376,7 +375,7 @@ class SimulationEngine:
         #: constructed before the pool/executor so both can reference it
         #: unconditionally
         self.trace = TraceRecorder(cfg, self.device)
-        self.pool = make_pool(self)
+        self.pool = make_pool(self, emulate=emulate)
         self.executor = get_executor(cfg.engine)(self)
         self.executor.setup()
         self.scenario.setup(self)

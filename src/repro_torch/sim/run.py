@@ -5,10 +5,11 @@ The port's ``python -m repro.sim.run``: the reference's flags and
 defaults, plus ``--device`` (the GPU unless ``--device cpu``).  Runs a
 scenario under the chosen execution mode and writes the per-round JSONL
 metrics log (schema: ``repro_torch.sim.metrics``, the reference's), then
-prints the reference's end-of-run summary.  ``--mesh`` (the sharded
-pool) is refused with an error naming its ROADMAP.md item, never
-ignored; ``--autotune`` needs ``--autotune-model`` (the port ships no
-fitted cost model).
+prints the reference's end-of-run summary.  ``--mesh k`` shards the
+pool over k local devices of ``--device``'s type (more shards than the
+host has is an error; emulating k shards on one device is the Python
+API's ``SimulationEngine(cfg, emulate=True)``); ``--autotune`` needs
+``--autotune-model`` (the port ships no fitted cost model).
 """
 from __future__ import annotations
 
@@ -24,12 +25,6 @@ from repro_torch.sim.engine import SimConfig, SimulationEngine
 from repro_torch.sim.executors import EXECUTORS
 from repro_torch.sim.scenarios import SCENARIOS
 
-#: the reference's flags of features not ported yet -> the ROADMAP.md
-#: item that brings them.  The parser does not declare them: asking for
-#: one is refused.
-NOT_PORTED_FLAGS = {"--mesh": "queue 1 item 5 (sharded pool)"}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m repro_torch.sim.run",
@@ -38,6 +33,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=sorted(SCENARIOS))
     p.add_argument("--engine", default="sync", choices=sorted(EXECUTORS),
                    help="execution mode (see repro_torch.sim.executors)")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="device-pool backend: 0 = single device "
+                        "(default); k >= 1 = pool axis sharded over a "
+                        "k-shard 'devices' mesh (k > 1 needs that many "
+                        "local devices of --device's type; the Python "
+                        "API emulates k shards on one device with "
+                        "SimulationEngine(cfg, emulate=True))")
     p.add_argument("--devices", type=int, default=8)
     p.add_argument("--rounds", type=int, default=5,
                    help="global rounds (sync) / ticks (async-gossip)")
@@ -152,7 +154,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="async subset-gather bucket floor (power-of-two "
                         "widths start here; an autotuner knob)")
     p.add_argument("--autotune", action="store_true",
-                   help="before running, search div-budget/gather-"
+                   help="before running, search mesh/div-budget/gather-"
                         "floor/resolve-patience against the fitted cost "
                         "model and apply the cheapest predicted config "
                         "(needs --autotune-model)")
@@ -172,16 +174,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(p: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse ``argv``; exit through ``p.error`` when a flag of a feature
-    not ported yet was asked for, or ``--autotune`` without a model."""
-    args, extra = p.parse_known_args(argv)
-    for tok in extra:
-        flag = tok.split("=", 1)[0]
-        if flag in NOT_PORTED_FLAGS:
-            p.error(f"{flag} is not ported to repro_torch yet "
-                    f"(ROADMAP.md {NOT_PORTED_FLAGS[flag]})")
-    if extra:
-        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    """Parse ``argv``; exit through ``p.error`` for ``--autotune``
+    without a model."""
+    args = p.parse_args(argv)
     if args.autotune and not args.autotune_model:
         p.error("--autotune needs --autotune-model: the port ships no "
                 "cost model (the reference's BENCH_trace.json was fitted "
@@ -217,7 +212,7 @@ def config_from_args(args: argparse.Namespace) -> SimConfig:
         gossip_degree=args.gossip_degree,
         resolve_patience=args.resolve_patience,
         div_prior=args.div_prior,
-        train_gather=not args.no_train_gather,
+        mesh=args.mesh, train_gather=not args.no_train_gather,
         checkpoint_every=args.checkpoint_every,
         ckpt_dir=args.ckpt_dir or (
             f"{out}.ckpt" if args.checkpoint_every or args.resume

@@ -149,6 +149,12 @@ class CostModel:
             sec += spec.get("first_extra", 0.0)
         return sec
 
+    def known_meshes(self) -> set:
+        out = set()
+        for spec in self.phases.values():
+            out.update(spec.get("fit_meshes", []))
+        return out
+
     # --------------------------------------------------- serialization
     def to_dict(self) -> dict:
         return {"phases": self.phases}

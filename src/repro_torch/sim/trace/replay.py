@@ -188,6 +188,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("sync", "async-gossip"))
     p.add_argument("--n", "--devices", dest="n", type=int, default=64)
     p.add_argument("--rounds", type=int, default=10)
+    p.add_argument("--mesh", type=int, default=0)
     p.add_argument("--div-budget", type=int, default=-1)
     p.add_argument("--resolve-patience", type=int, default=10)
     p.add_argument("--gossip-pairs", type=int, default=-1)
@@ -213,7 +214,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from repro_torch.sim.engine import SimConfig
     cfg = SimConfig(
         scenario=args.scenario, engine=args.engine, devices=args.n,
-        rounds=args.rounds, div_budget=args.div_budget,
+        rounds=args.rounds, mesh=args.mesh, div_budget=args.div_budget,
         resolve_patience=args.resolve_patience,
         gossip_pairs=args.gossip_pairs,
         train_gather_floor=args.gather_floor,

@@ -1,15 +1,19 @@
-"""Numpy copy of ``repro.sim.trace.tune``, searching only the knobs the
-port runs: the sharded pool is not ported (ROADMAP.md queue 1 item 5),
-so ``mesh`` stays the caller's own.
+"""Numpy copy of ``repro.sim.trace.tune``: the same search, mesh sizes
+included, against a cost model fitted on the machine it predicts for.
 
 Knob autotuner: search SimConfig knobs against the fitted cost model.
 
-``autotune`` grid-searches three cost-relevant knobs — ``div_budget``,
-the train gather bucket floor (``train_gather_floor``) and
-``resolve_patience`` — scoring each candidate with the replay walker's
-predicted end-to-end wall time, and returns the cheapest configuration
-that respects the guardrails:
+``autotune`` grid-searches the four cost-relevant knobs the trace PR
+exposes — ``mesh``, ``div_budget``, the train gather bucket floor
+(``train_gather_floor``) and ``resolve_patience`` — scoring each
+candidate with the replay walker's predicted end-to-end wall time, and
+returns the cheapest configuration that respects the guardrails:
 
+  - **mesh**: only mesh sizes the model was actually fitted on (plus
+    the caller's own) are searched by default — the per-shard lane
+    feature would happily extrapolate a speedup an emulated mesh cannot
+    deliver; ``allow_mesh_extrapolation`` opts in to powers of two up
+    to ``max_mesh``.
   - **div_budget**: cost-only minimization would starve the refresh
     (budget 0 is always cheapest), so a candidate budget must cover the
     scenario's expected per-tick dirty-pair rate — capped at
@@ -27,13 +31,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import List, Optional
 
 from repro_torch.sim.trace.model import CostModel
 from repro_torch.sim.trace.replay import DRIFT_SCENARIOS, predict_run
 
 PATIENCE_MIN, PATIENCE_MAX = 5, 30
-TUNED_KNOBS = ("div_budget", "train_gather_floor", "resolve_patience")
+TUNED_KNOBS = ("mesh", "div_budget", "train_gather_floor",
+               "resolve_patience")
 
 
 def expected_dirty_rate(cfg) -> float:
@@ -65,12 +70,28 @@ def _budget_candidates(cfg) -> List[int]:
     return sorted(ok)
 
 
-def autotune(cfg, model: CostModel) -> dict:
+def _mesh_candidates(cfg, model: CostModel, max_mesh: Optional[int],
+                     allow_extrapolation: bool) -> List[int]:
+    cands = {cfg.mesh} | {m for m in model.known_meshes()}
+    if allow_extrapolation and max_mesh:
+        m = 1
+        while m <= max_mesh:
+            cands.add(m)
+            m *= 2
+    if max_mesh is not None:
+        cands = {m for m in cands if m <= max_mesh}
+    return sorted(cands)
+
+
+def autotune(cfg, model: CostModel, *, max_mesh: Optional[int] = None,
+             allow_mesh_extrapolation: bool = False) -> dict:
     """Returns ``{"knobs": {changed knob: value}, "predicted_s",
     "baseline_s", "n_candidates"}`` — the cheapest guardrail-respecting
     configuration under the model.  ``cfg`` itself is never mutated;
     apply the knobs with ``dataclasses.replace``."""
     baseline = predict_run(cfg, model)["total_s"]
+    meshes = _mesh_candidates(cfg, model, max_mesh,
+                              allow_mesh_extrapolation)
     budgets = _budget_candidates(cfg)
     floors = sorted({cfg.train_gather_floor, 4, 8, 16})
     if cfg.engine == "async-gossip" and cfg.resolve_patience > 0:
@@ -81,20 +102,22 @@ def autotune(cfg, model: CostModel) -> dict:
         patiences = [cfg.resolve_patience]
 
     best, best_knobs, tried = baseline, {}, 0
-    for budget in budgets:
-        for floor in floors:
-            for patience in patiences:
-                knobs = dict(div_budget=budget, train_gather_floor=floor,
-                             resolve_patience=patience)
-                changed = {k: v for k, v in knobs.items()
-                           if v != getattr(cfg, k)}
-                tried += 1
-                if not changed:
-                    continue
-                cand = dataclasses.replace(cfg, **changed)
-                cost = predict_run(cand, model)["total_s"]
-                if cost < best:
-                    best, best_knobs = cost, changed
+    for mesh in meshes:
+        for budget in budgets:
+            for floor in floors:
+                for patience in patiences:
+                    knobs = dict(mesh=mesh, div_budget=budget,
+                                 train_gather_floor=floor,
+                                 resolve_patience=patience)
+                    changed = {k: v for k, v in knobs.items()
+                               if v != getattr(cfg, k)}
+                    tried += 1
+                    if not changed:
+                        continue
+                    cand = dataclasses.replace(cfg, **changed)
+                    cost = predict_run(cand, model)["total_s"]
+                    if cost < best:
+                        best, best_knobs = cost, changed
     return {"knobs": best_knobs, "predicted_s": best,
             "baseline_s": baseline, "n_candidates": tried,
             "min_div_budget": min_budget(cfg)}

@@ -500,3 +500,108 @@ def test_wrapper_refuses_grad_on_card(cuda, name):
         call(True)
     call(False)
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------- more than one card
+@pytest.fixture
+def cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices (the sharded pool's "
+                    "k-card layout)")
+    return torch.cuda.device_count()
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_a_second_card(cards):
+    """Each wrapper launches on its inputs' card while another card is
+    current (the sharded pool's shards on cuda:s), both of
+    alpha_combine's routes and the dynamic shared memory each kernel
+    asks for on a card it has not yet run on."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssm_scan import ops as ss
+    for first in (0, 1):                 # either card first, then the other
+        for index in (first, 1 - first):
+            dev = torch.device("cuda", index)
+            with torch.cuda.device(1 - index):
+                for s, t in ((10, 10), (64, 32)):   # mma.sync, then wgmma
+                    theta, alpha = _ac_inputs(s, t, 4801)
+                    th = torch.as_tensor(theta, device=dev)
+                    al = torch.as_tensor(alpha, device=dev)
+                    out = ac.alpha_combine(th, al)
+                    assert out.device == dev
+                    torch.testing.assert_close(
+                        out, ac.alpha_combine_plain(th, al), rtol=1e-5,
+                        atol=1e-5)
+                preds = torch.as_tensor(_preds(40, 777), device=dev)
+                valid = torch.as_tensor(RNG.random(777) < 0.7,
+                                        device=dev).float()
+                torch.testing.assert_close(
+                    dg.disagreement_counts(preds, valid),
+                    dg.disagreement_counts_plain(preds, valid))
+                q, k, v = (torch.as_tensor(RNG.normal(size=(1, 130, 4, 64)),
+                                           dtype=torch.bfloat16, device=dev)
+                           for _ in range(3))
+                torch.testing.assert_close(
+                    fa.flash_attention(q, k, v, causal=True).float(),
+                    fa.flash_attention_plain(q, k, v, causal=True).float(),
+                    atol=1e-5, rtol=2.0 ** -7)
+                x = _ssm_case(dev, 1, 96, 3, 32, 32, torch.float32,
+                              lambda size: -np.abs(RNG.normal(size=size)))
+                _ssm_check(ss, x, 32, "rwkv", dict(atol=3e-5, rtol=1e-4))
+            torch.cuda.synchronize(dev)
+
+
+@pytest.mark.cuda
+def test_sharded_pool_on_separate_cards(cards):
+    """``--mesh k`` on a k-card host: shard s on cuda:s, one slab a shard
+    a round on its own card, the run's decisions those of the same mesh
+    emulated on cuda:0; a mesh built for ``cuda:1`` starts there; a
+    sharded 'faulty' run recovers lost shards on separate cards."""
+    from repro_torch.sim import SimConfig, SimulationEngine
+    from repro_torch.sim.shard.mesh import make_pool_mesh
+    k = min(cards, 4)
+    assert make_pool_mesh(k, "cuda:0").devices == \
+        tuple(torch.device("cuda", i) for i in range(k))
+    assert make_pool_mesh(cards - 1, "cuda:1").devices == \
+        tuple(torch.device("cuda", i) for i in range(1, cards))
+    with pytest.raises(RuntimeError, match="emulate=True"):
+        make_pool_mesh(cards, "cuda:1")
+    base = dict(devices=8, rounds=3, samples_per_device=40, train_iters=30,
+                div_tau=1, div_T=3, solver_max_outer=4,
+                solver_inner_steps=300, solver_inner_steps_warm=150)
+    keys = ("n_active", "n_sources", "n_targets", "transmissions", "events",
+            "resolved", "warm", "resolve_reason", "n_faults", "n_recovered")
+
+    def same(a_rows, b_rows):
+        for a, b in zip(a_rows, b_rows, strict=True):
+            for key in keys:
+                assert a[key] == b[key], (a["round"], key)
+            np.testing.assert_allclose(a["energy"], b["energy"], rtol=1e-3,
+                                       atol=1e-6)
+
+    for cfg, mesh in ((dict(base, scenario="channel-drift"), k),
+                      (dict(base, scenario="faulty", devices=6, rounds=4,
+                            fault_shard_p=0.7, fault_crash_p=0.0), 2)):
+        real = SimulationEngine(SimConfig(**cfg, mesh=mesh), device="cuda:0")
+        assert real.pool.mesh.devices == \
+            tuple(torch.device("cuda", i) for i in range(mesh))
+        before = ac.alpha_combine.launches
+        rows = real.run()
+        pad = -(-cfg["devices"] // mesh) * mesh
+        assert ac.alpha_combine.launches - before == \
+            cfg["rounds"] * mesh * ac._plan(pad, pad // mesh)[0]
+        assert all(v.device == torch.device("cuda", 0)
+                   for v in real.state.params.values())
+        emulated = SimulationEngine(SimConfig(**cfg, mesh=mesh),
+                                    device="cuda:0", emulate=True).run()
+        assert any(r["n_targets"] for r in rows)
+        same(rows, emulated)
+        if cfg["scenario"] == "faulty":
+            assert sum(r["n_recovered"] for r in rows) > 0
+    one = SimulationEngine(SimConfig(**base, scenario="channel-drift",
+                                     mesh=1), device="cuda:1")
+    assert one.pool.mesh.devices == (torch.device("cuda", 1),)
+    same(one.run(), SimulationEngine(SimConfig(
+        **base, scenario="channel-drift", mesh=1), device="cuda:0").run())
+    assert all(v.device == torch.device("cuda", 1)
+               for v in one.state.params.values())

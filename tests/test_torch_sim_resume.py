@@ -20,11 +20,12 @@ import pytest
 
 from test_torch_draws import JaxSimDraws
 from test_torch_sim_async import check_scenario
-from test_torch_sim_engine import SMALL
+from test_torch_sim_engine import SMALL, assert_rows_match
 from repro.checkpoint import load_arrays as jload_arrays
 from repro.sim import faults as jfaults
 from repro.sim.engine import SimConfig as JSimConfig
 from repro.sim.engine import SimulationEngine as JSimulationEngine
+from repro.sim.shard import pool as jpool
 from repro_torch.checkpoint import load_arrays, load_metadata
 from repro_torch.sim import SimConfig, SimulationEngine, faults
 from repro_torch.sim.metrics import read_jsonl, strip_nondeterministic
@@ -61,13 +62,13 @@ def test_faulty_async_matches_reference():
 
 
 # --------------------------------------------------- resume = straight run
-def _roundtrip(tmp_path, rounds=5, cut=2, **kw):
+def _roundtrip(tmp_path, rounds=5, cut=2, emulate=False, **kw):
     """Run uninterrupted; run to ``cut`` rounds with checkpointing; run
     again with resume=True to the full horizon (the port's own seeds).
     Returns (ref rows, resumed rows)."""
     def run(**more):
         return SimulationEngine(SimConfig(**SMOKE, **kw, **more),
-                                device="cpu").run()
+                                device="cpu", emulate=emulate).run()
     ref = run(rounds=rounds, log_path=str(tmp_path / "ref.jsonl"))
     ck = str(tmp_path / "ck")
     run(rounds=cut, log_path=str(tmp_path / "res.jsonl"),
@@ -100,6 +101,68 @@ def test_feature_drift_resume_matches_uninterrupted(tmp_path):
                            seed=4, feature_drift_p=0.8)
     assert _canon(ref) == _canon(rows)
     assert sum(r["n_drifted"] for r in ref) > 0
+
+
+# ------------------------------------------------ sharded shard loss
+SHARD_LOSS = dict(scenario="faulty", devices=6, seed=4, fault_shard_p=0.7,
+                  fault_crash_p=0.0)
+
+
+@pytest.mark.parametrize("mesh", [1, 2])
+def test_sharded_faulty_resume_matches_uninterrupted(tmp_path, mesh):
+    """ShardedPool (mesh 1, and 2 emulated): lost shards are recovered
+    through the churn/reseed path, and the resumed run reproduces the
+    uninterrupted one (the reference's case, which fails there under
+    jax 0.9.0: ``tests/test_sim_resume.py``)."""
+    ref, rows = _roundtrip(tmp_path, mesh=mesh, emulate=mesh > 1,
+                           **SHARD_LOSS)
+    assert _canon(ref) == _canon(rows)
+    assert sum(r["n_recovered"] for r in rows) > 0
+    assert any(e["event"] == "shard_lost" for r in rows
+               for e in r["events"])
+
+
+class _JaxShardRecovery(jpool.LocalPool):
+    """The reference's LocalPool doing, on unsharded arrays, what its
+    ShardedPool's ``_recover_shard`` does (which cannot run under jax
+    0.9.0: ``.at[j].set`` on a mesh-sharded leaf raises): ``n_shards``
+    shards over the padded pool, a lost shard's active devices handed
+    to ``engine._recover_devices``.  The injector draws the shard from
+    ``n_shards`` as it would against the sharded pool."""
+
+    def __init__(self, engine, n_shards):
+        super().__init__(engine)
+        self.n_shards = n_shards
+
+    def _recover_shard(self, s):
+        n = self.engine.state.pool_size
+        blk = -(-n // self.n_shards)
+        devs = [d for d in range(s * blk, min((s + 1) * blk, n))
+                if bool(self.engine.state.active[d])]
+        if devs:
+            self.engine._recover_devices(devs, shard=s)
+
+
+@pytest.mark.parametrize("mesh", [1, 2])
+def test_sharded_faulty_matches_reference_recovery(mesh):
+    jcfg = JSimConfig(**{**SMALL, **SHARD_LOSS, "rounds": 4})
+    ref = JSimulationEngine(jcfg)
+    ref.pool = _JaxShardRecovery(ref, mesh)
+    p0 = jax.tree_util.tree_map(np.asarray, ref.state.params)
+    ref_rows = ref.run()
+    cfg = SimConfig(**dict(
+        {f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__},
+        mesh=mesh))
+    eng = SimulationEngine(cfg, device="cpu", params0=p0,
+                           draws=JaxSimDraws(cfg), emulate=mesh > 1)
+    rows = eng.run()
+    assert eng.pool.name == f"sharded-{mesh}"
+    assert_rows_match(ref_rows, rows)
+    assert sum(r["n_recovered"] for r in rows) > 0
+    assert any(r["resolve_reason"] == "membership" for r in rows)
+    for k, v in eng.state.params.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(ref.state.params[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
 
 
 # ------------------------------------------- archive against the reference

@@ -90,14 +90,18 @@ def test_fit_predict_and_autotune_match_reference(events):
 
 
 def test_autotune_searches_only_the_ported_pool(events):
-    """A model that saw mesh 2 still tunes mesh 0 only: the sharded pool
-    is not ported."""
+    """The mesh search over the fitted meshes: a model that saw mesh 2
+    tunes mesh 2 as the reference does (the name dates from when only
+    the local pool was ported; ``tests/test_torch_sim_shard.py`` holds
+    the search to the reference's)."""
     _, synthetic, _ = events
     evs = synthetic + [dict(e, mesh=2, seconds=e["seconds"] / 4)
                        for e in synthetic]
-    out = tune.autotune(SimConfig(scenario="static", devices=16, rounds=4),
-                        model.CostModel.fit(evs))
-    assert out["knobs"].get("mesh", 0) == 0
+    cfg = dict(scenario="static", devices=16, rounds=4)
+    out = tune.autotune(SimConfig(**cfg), model.CostModel.fit(evs))
+    assert out == jtune.autotune(JSimConfig(**cfg),
+                                 jmodel.CostModel.fit(evs))
+    assert out["knobs"].get("mesh") == 2
     with pytest.raises(TypeError):
         model.CostModel.from_bench()              # no default model
 
