@@ -23,10 +23,13 @@ Phases, each of which raises on failure (the script then exits nonzero):
              and times kernel, plain version and one PyTorch library
              call with CUDA events.
              ``flash_attention`` is held against its plain version at
-             the serve path's two prefill shapes in bf16 (within one
-             bf16 ulp: rtol 2^-7, atol 1e-5; the tensor-core kernel) and
-             in fp32 (the SIMT kernel), and on the JAX package's test
-             grid in fp32 (atol 3e-5, rtol 1e-4), and timed beside
+             the serve paths' two prefill shapes, (4, 2048) causal and
+             (1, 9216) with a window of 8192, at llama3.2-1b's D = 64,
+             zamba2-7b's 112 (32/32 heads) and gemma-7b's 256 (16/16),
+             in bf16 (within one bf16 ulp: rtol 2^-7, atol 1e-5; the
+             tensor-core kernel) and in fp32 (the SIMT kernel), and on
+             the JAX package's test grid in fp32 (atol 3e-5, rtol
+             1e-4), and timed (bf16; fp32 too at D = 112 and 256) beside
              ``scaled_dot_product_attention`` (its own error against the
              plain version printed too).  Where a window applies, the
              plain version without it must fall outside the bar (the
@@ -127,6 +130,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
              prompt, and JAX's serving invariant at (4, 64) and (2, 300);
              the kernel against its plain version on layer 0's own
              r, k, v, log_w of both prompts.
+5c. serve-zamba — zamba2-7b at full width and depth (81 mamba layers in
+             14 groups, each followed by one of 2 shared attention
+             blocks; seeded weights drawn on the card), through the
+             kernels: prefill of PREFILLS, counted: 14 ``flash_attention``
+             launches (D = 112) and 81 x 3 ``ssm_scan`` kernels a
+             prefill; the logits against the same model through
+             ``"dot"`` and the plain scan (LM_TOL, argmax equal); layer
+             0's SSD inputs through ``ssm_scan`` against its plain
+             version and its float64 sums (as the model makes them, and
+             with C, B and v at unit RMS), timed; shared block 0's q, k,
+             v through the kernel against its plain version; then
+             ``serve.generate`` (32 greedy tokens after a (4, 64)
+             prompt, ms per decode step) and JAX's serving invariant in
+             float32 compute (the bf16 gap reported beside it).  Freed.
+5d. serve-gemma — gemma-7b at full width and depth (28 layers of 16
+             heads of 256, GeGLU, tied embeddings) the same way: 28
+             ``flash_attention`` launches a prefill, logits against
+             ``"dot"``, layer 0's q, k, v, generate, the invariant.
+             Freed.
 6. checks  — the disagreement kernel on the trained models' predictions
              and the transfer against their plain versions, and the GPU
              against the port on the CPU at a small size (the ST-LF
@@ -194,6 +216,12 @@ LM_TOL = dict(atol=0.15, rtol=0.05)
 # of the value (<= 2^-7 of it); fp32 is the JAX package's own bar
 FLASH_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7),
              torch.float32: dict(atol=3e-5, rtol=1e-4)}
+# the hybrid and the dense model whose attention runs flash_attention at
+# the head dims llama's does not (zamba2-7b's shared attention, 32 heads
+# of 112; gemma-7b, 16 of 256): (arch, heads, head dim).  Both prefill
+# PREFILLS, the second past their 8192-token window
+ZAMBA_ARCH, GEMMA_ARCH = "zamba2-7b", "gemma-7b"
+HEAD_DIM_PATHS = [(ZAMBA_ARCH, 32, 112), (GEMMA_ARCH, 16, 256)]
 RWKV_ARCH = "rwkv6-1.6b"
 # (B, L) of the rwkv serve path's two prefills: a batch of 2k prompts,
 # and one long prompt at batch 1, the case a linear-attention model is
@@ -321,10 +349,10 @@ def demangle(_build, symbol: str) -> str:
     return text.replace("(int)", "").split("(")[0].split("::")[-1]
 
 
-def check_flash_sass(_build):
-    """The bf16 flash kernel compiled to Hopper's warpgroup MMAs: every
-    instance of ``flash_fwd_tc_kernel`` in the library must hold HGMMA
-    instructions (a kernel compiled to FMAs fails).  Returns
+def check_flash_sass(_build, head_dims):
+    """The bf16 flash kernel compiled to Hopper's warpgroup MMAs: the
+    instance of ``flash_fwd_tc_kernel`` for each of ``head_dims`` must
+    hold HGMMA instructions (a kernel compiled to FMAs fails).  Returns
     {instance: HGMMA count}."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run(
@@ -337,7 +365,9 @@ def check_flash_sass(_build):
             d = re.search(r"flash_fwd_tc_kernelILi(\d+)E", name).group(1)
             counts[f"flash_fwd_tc_kernel<{d}>"] = len(
                 re.findall(r"\bHGMMA\b", fn))
-    if len(counts) != 4 or not all(counts.values()):
+    if sorted(counts) != sorted(f"flash_fwd_tc_kernel<{d}>"
+                                for d in head_dims) \
+            or not all(counts.values()):
         raise AssertionError(f"flash_attention: the bf16 kernel's SASS "
                              f"lacks HGMMA instructions: {counts}")
     return counts
@@ -671,10 +701,12 @@ def check_flash(fa, q, k, v, causal, window, what):
 
 
 def phase_flash(fa):
-    """``flash_attention`` against its plain version at the serve path's
-    prefill shapes (bf16 and fp32, GQA K/V as ``attend`` passes them;
-    bf16 timed beside ``scaled_dot_product_attention``) and on the JAX
-    package's test grid (``tests/test_kernels.py``, fp32)."""
+    """``flash_attention`` against its plain version at the serve paths'
+    prefill shapes (bf16 and fp32, GQA K/V as ``attend`` passes them):
+    llama3.2-1b's D = 64, zamba2-7b's shared attention at D = 112 and
+    gemma-7b's D = 256 (the bf16 rows, and at D = 112 and 256 the fp32
+    rows too, timed beside ``scaled_dot_product_attention``), and on the
+    JAX package's test grid (``tests/test_kernels.py``, fp32)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -688,7 +720,11 @@ def phase_flash(fa):
         (2, 64, 64, 2, 2, 32, True, 24, f32),
         (1, 32, 160, 2, 2, 16, True, None, f32),
         (1, 96, 96, 1, 1, 128, False, None, f32),
-    ]
+    ] + [(b, s, s, h, h, d, True, w, dt)
+         for _, h, d in HEAD_DIM_PATHS for dt in (bf16, f32)
+         for (b, s), w in zip(PREFILLS, (None, 8192))]
+    paths = {d: f"{arch} prefills {PREFILLS}"
+             for arch, _, d in [(LM_ARCH, 32, 64)] + HEAD_DIM_PATHS}
     rows = []
     for b, sq, sk, h, kv, d, causal, window, dt in cases:
         q = torch.randn(b, sq, h, d, device=dev, generator=gen).to(dt)
@@ -704,15 +740,19 @@ def phase_flash(fa):
         row = dict(shape=shape, causal=causal, window=window, dtype=dtype,
                    kernel=route, max_abs_err=err, out_rms=rms,
                    tol=FLASH_TOL[dt], beyond_bar_without_window=moved)
+        if sq == sk and sq in (2048, 9216):
+            row["path"] = paths[d]
         note = f"max abs err {err:.3g} (output RMS {rms:.3g}, bar " \
                f"{FLASH_TOL[dt]})" + ("" if moved is None else
                                       f"; without the window {moved} "
                                       f"elements fall beyond the bar")
-        if dt == bf16:             # the serve path's shapes: timed
+        if "path" in row and (dt == bf16 or d != 64):   # timed
             pairs = live_pairs(sq, sk, causal, window) * b * h
             nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size()
-            b_ms, b_by = bound(nbytes, 4 * d * pairs, PEAK_BF16_PER_S)
+            b_ms, b_by = bound(nbytes, 4 * d * pairs,
+                               PEAK_BF16_PER_S if dt == bf16
+                               else PEAK_FP32_PER_S)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             mask = None
             if window is not None:
@@ -1019,10 +1059,16 @@ def ssm_note(c, tol):
 
 def ssm_device_us(ss, run, calls=5, windows=3):
     """Device microseconds a call of each ssm_scan kernel, from a profiler
-    window over ``calls`` calls, which must hold each of SSM_KERNELS
-    exactly ``calls`` times and nothing else of ssm_scan (the count the
-    wrapper keeps is checked against SSM_KERNELS too).  A window that
-    lost a record is taken again, up to ``windows`` times."""
+    window over ``calls`` calls: each kernel's device time summed over
+    its records and divided by their number.  The wrapper must count
+    ``calls`` x 3 launches, and the profiler must see nothing of ssm_scan
+    but SSM_KERNELS, none more than ``calls`` times.  It keeps every
+    record early in a run, but after heavy card work it loses the first
+    records of some windows (in phase 3 of full runs of this script: one
+    of five ``ssm_chunk_state_kernel`` records, three windows in a row),
+    so a kernel is timed on the records seen; a window that saw one of the
+    kernels not at all is taken again, up to ``windows`` times.  Returns
+    ({kernel: us}, {kernel: records seen})."""
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
@@ -1037,8 +1083,9 @@ def ssm_device_us(ss, run, calls=5, windows=3):
         for e in prof.key_averages():
             name = re.search(r"(ssm_\w+)", e.key)
             if e.device_type == torch.autograd.DeviceType.CUDA and name:
-                us[name.group(1)] = e.self_device_time_total / calls
-                seen[name.group(1)] = seen.get(name.group(1), 0) + e.count
+                n = name.group(1)
+                us[n] = us.get(n, 0.0) + e.self_device_time_total
+                seen[n] = seen.get(n, 0) + e.count
         if counted != calls * len(SSM_KERNELS) \
                 or set(seen) - set(SSM_KERNELS) \
                 or any(n > calls for n in seen.values()):
@@ -1046,10 +1093,20 @@ def ssm_device_us(ss, run, calls=5, windows=3):
                                  f"{counted} launches in the wrapper and "
                                  f"{seen} in the profiler, not {calls} of "
                                  f"each of {SSM_KERNELS}")
-        if seen == {name: calls for name in SSM_KERNELS}:
-            return us
+        if set(seen) == set(SSM_KERNELS):
+            return {n: us[n] / seen[n] for n in SSM_KERNELS}, seen
     raise AssertionError(f"ssm_scan: the profiler saw {seen} in {calls} "
-                         f"calls, not {calls} of each of {SSM_KERNELS}")
+                         f"calls, not each of {SSM_KERNELS}")
+
+
+def device_parts(row, calls=5):
+    """A timed ssm_scan row's device us a call, kernel by kernel, with the
+    records a kernel was timed on where the profiler lost some."""
+    return ", ".join(
+        f"{k_} {v_:.1f}" + ("" if row["device_records"][k_] == calls else
+                            f" ({row['device_records'][k_]} of {calls} "
+                            f"records)")
+        for k_, v_ in row["device_us"].items())
 
 
 def phase_ssm(ss, report):
@@ -1097,7 +1154,9 @@ def phase_ssm(ss, report):
                         plain = lambda: ss.gla_chunked_plain(  # noqa: E731
                             q, k, v, lw, chunk=chunk, variant="rwkv",
                             bonus=bonus, initial_state=s0)
-                        row.update(flops=flops, bytes=nbytes,
+                        row.update(path=f"{RWKV_ARCH} prefills "
+                                        f"{RWKV_PREFILLS}",
+                                   flops=flops, bytes=nbytes,
                                    ms=cuda_ms(run, 10),
                                    plain_ms=cuda_ms(plain, 2),
                                    library_ms=None, bound_ms=b_ms,
@@ -1105,10 +1164,10 @@ def phase_ssm(ss, report):
                                    split_products_ms=(
                                        3 * flops / PEAK_TF32_PER_S * 1e3),
                                    kernel_products_ms=(
-                                       2 * macs / PEAK_TF32_PER_S * 1e3),
-                                   device_us=ssm_device_us(ss, run))
-                        parts = ", ".join(f"{k_} {v_:.1f}" for k_, v_ in
-                                          row["device_us"].items())
+                                       2 * macs / PEAK_TF32_PER_S * 1e3))
+                        row["device_us"], row["device_records"] = \
+                            ssm_device_us(ss, run)
+                        parts = device_parts(row)
                         log(f"[kernels] ssm_scan {row['shape']} rwkv bf16 "
                             f"init: {row['ms']:.4f} ms kernels, "
                             f"{row['plain_ms']:.4f} ms plain, library none, "
@@ -1353,6 +1412,323 @@ def phase_serve_rwkv(counted, report):
             f"gap exceeds twice it")
     report["serve_rwkv"] = out
     return launches, model, params
+
+
+def _serve_prefills(tag, model, ref_model, params, counted, per_prefill):
+    """The big models' prefills of PREFILLS through the kernels, counted
+    (``per_prefill``: each kernel's launches a prefill, checked over the
+    two and again on a later prefill of each), deterministic, and
+    against ``ref_model`` (the plain routes) on the same weights: within
+    LM_TOL, argmax equal.  Returns (launches, prompts, rows)."""
+    dev = torch.device("cuda")
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, shape, device=dev,
+                             generator=gen) for shape in PREFILLS]
+    zero_counts(counted)
+    first = [_timed(lambda p=p: model.prefill(params, {"tokens": p}))
+             for p in prompts]
+    launches = read_counts(counted)
+    log(f"[{tag}] launches in the serve path: {launches}")
+    for name, n in per_prefill.items():
+        if launches[name] != 2 * n:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} "
+                                 f"times in two prefills, not {2 * n}")
+    rows = []
+    for (b, s), p, (logits, first_s) in zip(PREFILLS, prompts, first):
+        if logits.shape != (b, 1, cfg.vocab_size):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+        before = read_counts(counted)
+        torch.cuda.reset_peak_memory_stats()
+        again, steady_s = _timed(lambda: model.prefill(params,
+                                                       {"tokens": p}))
+        peak = torch.cuda.max_memory_allocated()
+        after = read_counts(counted)
+        again_n = {k: after[k] - before[k] for k in per_prefill}
+        if again_n != per_prefill:
+            raise AssertionError(f"{tag}: a later prefill launched "
+                                 f"{again_n}, not {per_prefill}")
+        if not torch.equal(again, logits):
+            raise AssertionError(f"{tag}: prefill {(b, s)} through the "
+                                 f"kernels is not deterministic")
+        ref, ref_s = _timed(lambda: ref_model.prefill(params,
+                                                      {"tokens": p}))
+        diff, gap = _logit_gap(logits, ref, f"{tag} prefill {(b, s)} "
+                               f"kernels vs plain routes")
+        del ref
+        rows.append(dict(shape=[b, s], first_s=first_s, steady_s=steady_s,
+                         tok_per_s=b * s / steady_s, peak_gb=peak / 1e9,
+                         plain_routes_s=ref_s, max_abs_dlogit_vs_plain=diff,
+                         min_top2_gap=gap))
+        log(f"[{tag}] prefill {(b, s)} through the kernels: first call "
+            f"{first_s:.4f} s, again {steady_s:.4f} s "
+            f"({b * s / steady_s:,.0f} tokens/s), peak memory "
+            f"{peak / 1e9:.2f} GB; through the plain routes {ref_s:.4f} s; "
+            f"max |dlogit| {diff:.4g}, argmax equal (smallest top-2 gap "
+            f"{gap:.4g})")
+        torch.cuda.empty_cache()
+    return launches, prompts, rows
+
+
+def _decode_pass(model, params, prompt):
+    """decode_step over ``prompt`` token by token from an empty cache:
+    the last step's logits."""
+    b, s = prompt.shape
+    cache = model.init_cache(b, s, device=prompt.device)
+    for i in range(s):
+        dec, cache = model.decode_step(params, cache, {
+            "token": prompt[:, i:i + 1],
+            "pos": torch.full((b,), i, device=prompt.device)})
+    return dec
+
+
+def _serve_generate(tag, model, params):
+    """``serve.generate``: a (4, 64) prompt, 32 greedy tokens, timed.
+    Then JAX's serving invariant, decode_step token by token from an
+    empty cache reaching prefill's last-token logits, held
+    (``_decode_gap``) with the same weights in float32 compute, where it
+    tests the caches and the two routes' algorithms; in bfloat16 the two
+    routes round differently at every one of the model's blocks, and
+    that gap is reported beside it."""
+    from repro_torch.launch.serve import generate
+    dev = torch.device("cuda")
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, s, n_gen = 4, 64, 32
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=gen)
+    generate(model, params, prompt[:, :2], 2, 4)          # warm-up
+    toks, gen_s = _timed(lambda: generate(model, params, prompt, n_gen,
+                                          s + n_gen))
+    steps = s + n_gen
+    if toks.shape != (b, n_gen) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{tag}: generate gave {tuple(toks.shape)} "
+                             f"tokens out of range")
+    dec = _decode_pass(model, params, prompt)
+    if not torch.equal(toks[:, 0], dec[:, 0].argmax(-1)):
+        raise AssertionError(f"{tag}: generate's first token is not the "
+                             f"argmax of the decode pass's logits")
+    pre = model.prefill(params, {"tokens": prompt})
+    bf16_diff = float((dec.float() - pre.float()).abs().max())
+    bf16_same = int((dec.argmax(-1) == pre.argmax(-1)).sum())
+    f32 = type(model)(dataclasses.replace(cfg, dtype="float32"))
+    diff, gap, held = _decode_gap(
+        _decode_pass(f32, params, prompt),
+        f32.prefill(params, {"tokens": prompt}),
+        f"{tag} decode vs prefill in float32 compute")
+    log(f"[{tag}] generate {(b, s)} + {n_gen} greedy tokens: {gen_s:.3f} s, "
+        f"{steps} decode steps, {gen_s / steps * 1e3:.3f} ms per step (host "
+        f"clock); decode vs prefill at the prompt's last token, float32 "
+        f"compute: max |dlogit| {diff:.4g} (bar {LM_TOL}), smallest top-2 "
+        f"gap {gap:.4g}, argmax equal in the {held} of {b} rows whose gap "
+        f"exceeds twice it; bfloat16 compute: max |dlogit| {bf16_diff:.4g}, "
+        f"argmax equal in {bf16_same} of {b} rows")
+    return dict(batch=b, prompt=s, gen=n_gen, wall_s=gen_s,
+                decode_steps=steps, ms_per_decode_step=gen_s / steps * 1e3,
+                max_abs_dlogit_decode_vs_prefill_f32=diff, min_top2_gap=gap,
+                rows_held_to_argmax=held,
+                max_abs_dlogit_decode_vs_prefill_bf16=bf16_diff,
+                argmax_equal_rows_bf16=bf16_same)
+
+
+def zamba_layer0(model, params, tokens):
+    """Layer 0's q = C, k = B, v and log_w as ``ZambaModel.prefill`` hands
+    them to the scan (q and k broadcast over heads, log_w contiguous)."""
+    from repro_torch.models.common import take_layer
+    from repro_torch.nn import mamba
+    from repro_torch.nn.layers import embed, rmsnorm
+    cfg = model.cfg
+    x = embed(tokens, params["embedding"], torch.bfloat16)
+    lp = take_layer(params["layers"], 0)
+    _, q, k, v, log_w, _, _ = mamba._conv_ssd(
+        lp["mix"], rmsnorm(x, lp["ln"], cfg.norm_eps), cfg, None,
+        torch.bfloat16)
+    return q, k, v, log_w.contiguous()
+
+
+def zamba_shared0_qkv(model, params, tokens):
+    """Shared block 0's q, k, v at its first application, as
+    ``ZambaModel.prefill`` hands them to the attention impl: the first
+    group's mamba layers, rmsnorm, projection, rope."""
+    from repro_torch.models.common import take_layer
+    from repro_torch.nn import mamba
+    from repro_torch.nn.attention import project_qkv
+    from repro_torch.nn.layers import embed, rmsnorm
+    cfg = model.cfg
+    x = embed(tokens, params["embedding"], torch.bfloat16)
+    b, s, _ = x.shape
+    for i in range(model.group_sizes[0]):
+        lp = take_layer(params["layers"], i)
+        m, _ = mamba.mamba_block(lp["mix"], rmsnorm(x, lp["ln"],
+                                                    cfg.norm_eps), cfg)
+        x = x + m
+    sp = take_layer(params["shared"], 0)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    return project_qkv(sp["attn"], rmsnorm(x, sp["ln1"], cfg.norm_eps),
+                       positions, cfg.rope_theta, torch.bfloat16)
+
+
+def _flash_layer_check(tag, fa_ops, qkv, s, window_cfg, what):
+    window = window_cfg if window_cfg and s > window_cfg else None
+    err, moved, rms = check_flash(fa_ops, *qkv, True, window, what)
+    log(f"[{tag}] {what}: kernel vs plain on the model's q, k, v (D = "
+        f"{qkv[0].shape[-1]}): max abs err {err:.3g} (output RMS "
+        f"{rms:.3g}, bar {FLASH_TOL[torch.bfloat16]})"
+        + ("" if moved is None else f"; without the window {moved} "
+           f"elements fall beyond the bar"))
+    return dict(max_abs_err=err, out_rms=rms, window=window,
+                beyond_bar_without_window=moved)
+
+
+def phase_serve_zamba(counted, report):
+    """zamba2-7b at full width and depth (81 mamba layers, 2 shared
+    attention blocks applied 14 times) through the port's serving entry
+    points: ``ZambaModel.prefill`` counted (a prefill: 14
+    ``flash_attention`` launches at D = 112, 81 ``ssm_scan`` calls of 3
+    kernels), against the same model through ``"dot"`` and the plain
+    scan; layer 0's SSD inputs through ``ssm_scan`` against its plain
+    version (and timed there, at zamba's shapes), shared block 0's q, k,
+    v through the kernel against its plain version; ``serve.generate``
+    and decode against prefill.  The model is freed afterwards."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.models.api import build_model
+    from repro_torch.models.zamba import ZambaModel
+    from repro_torch.nn.mamba import dims
+    from repro_torch.nn.param import count_params
+
+    tag = "serve-zamba"
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(ZAMBA_ARCH),
+                              attention_impl="kernel")
+    model = build_model(cfg)
+    params, init_s = _timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = count_params(params)
+    groups = len(model.group_sizes)
+    log(f"[{tag}] {cfg.name}: {n_params:,} parameters (float32, drawn on "
+        f"the card from seed 0) in {init_s:.3f} s; {cfg.num_layers} mamba "
+        f"layers in {groups} groups {model.group_sizes}, "
+        f"{cfg.hybrid.num_shared_blocks} shared blocks of {cfg.num_heads} "
+        f"heads of {cfg.resolved_head_dim()}, SSD {model.cfg.ssm}; compute "
+        f"dtype {cfg.dtype}, attention_impl={cfg.attention_impl}, "
+        f"scan_impl={model.scan_impl}")
+    per_call = len(SSM_KERNELS)
+    per_prefill = {"flash_attention": groups,
+                   "ssm_scan": per_call * cfg.num_layers}
+    plain = ZambaModel(dataclasses.replace(cfg, attention_impl="dot"),
+                       scan_impl="plain")
+    launches, prompts, rows = _serve_prefills(tag, model, plain, params,
+                                              counted, per_prefill)
+    out = dict(params=n_params, init_s=init_s, launches=launches,
+               per_prefill=per_prefill, prefill=rows, ssm_rows=[])
+    nheads = dims(cfg)[1]
+    n, hd, chunk = cfg.ssm.state_dim, cfg.ssm.head_dim, cfg.ssm.chunk
+    for (b, s), p, row in zip(PREFILLS, prompts, rows):
+        q, k, v, lw = zamba_layer0(model, params, p)
+        c = check_ssm(ss_ops, q, k, v, lw, chunk, "mamba", None, None,
+                      f"{tag} layer 0 of prefill {(b, s)}")
+        # JAX's init takes a stacked leaf's fan-in over the layer axis
+        # too, so the 81 layers' projections draw 9x smaller and layer
+        # 0's y is ~2e-7, under the bar's atol; the same inputs with C, B
+        # and v scaled to unit RMS (the broadcasts and decays kept) hold
+        # the kernels to the bar's rtol
+        unit = [t / t.float().square().mean().sqrt().to(t.dtype)
+                for t in (q[:, :, :1], k[:, :, :1], v)]
+        cu = check_ssm(ss_ops, unit[0].expand_as(q), unit[1].expand_as(k),
+                       unit[2], lw, chunk, "mamba", None, None,
+                       f"{tag} layer 0 of prefill {(b, s)}, unit RMS")
+        del unit
+        row.update({f"layer0_ssm_{k_}": v_ for k_, v_ in c.items()})
+        row.update({f"layer0_unit_ssm_{k_}": v_ for k_, v_ in cu.items()})
+        # the function's bytes: C and B once each (broadcast over heads),
+        # v, log_w (as the model materializes it) and y; the state out
+        flops = ssm_flops(b, s, nheads, n, hd, chunk, "mamba")
+        nbytes = (2 * b * s * n * q.element_size()
+                  + 2 * v.numel() * v.element_size() + lw.numel() * 4
+                  + 4 * b * nheads * n * hd)
+        b_ms, b_by = bound(nbytes, flops, PEAK_TF32_PER_S)
+        macs = ssm_kernel_macs(b, s, nheads, n, hd, chunk, True)
+        run = lambda: ss_ops.gla_chunked(  # noqa: E731
+            q, k, v, lw, chunk=chunk, variant="mamba")
+        srow = dict(shape=[b, s, nheads, n, hd], variant="mamba",
+                    regime="zamba layer 0", dtype="bfloat16",
+                    path=f"{ZAMBA_ARCH} prefills {PREFILLS}", **c,
+                    **{f"unit_rms_{k_}": v_ for k_, v_ in cu.items()},
+                    flops=flops, bytes=nbytes, ms=cuda_ms(run, 10),
+                    plain_ms=cuda_ms(lambda: ss_ops.gla_chunked_plain(
+                        q, k, v, lw, chunk=chunk, variant="mamba"), 2),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                    kernel_products_ms=2 * macs / PEAK_TF32_PER_S * 1e3)
+        srow["device_us"], srow["device_records"] = ssm_device_us(ss_ops,
+                                                                  run)
+        out["ssm_rows"].append(srow)
+        parts = device_parts(srow)
+        log(f"[{tag}] ssm_scan on layer 0's inputs of prefill {(b, s)} "
+            f"({b}, {s}, {nheads}, {n}, {hd}) mamba bf16, q = C and k = B "
+            f"broadcast over heads: {srow['ms']:.4f} ms kernels, "
+            f"{srow['plain_ms']:.4f} ms plain, bound {b_ms:.4f} ms "
+            f"({b_by}; the kernels' products "
+            f"{srow['kernel_products_ms']:.4f} ms at the TF32 peak); "
+            f"device us a call: {parts}; "
+            f"{ssm_note(c, SSM_TOL[torch.bfloat16])}; C, B and v at unit "
+            f"RMS: {ssm_note(cu, SSM_TOL[torch.bfloat16])}")
+        del q, k, v, lw
+        row["shared0_flash"] = _flash_layer_check(
+            tag, fa_ops, zamba_shared0_qkv(model, params, p), s,
+            cfg.sliding_window, f"shared block 0 of prefill {(b, s)}")
+        torch.cuda.empty_cache()
+    out["generate"] = _serve_generate(tag, model, params)
+    report["serve_zamba"] = out
+    del params, model, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_gemma(counted, report):
+    """gemma-7b at full width and depth (28 layers, 16 heads of 256,
+    GeGLU, tied embeddings) through the port's serving entry points:
+    ``DecoderLM.prefill`` counted (28 ``flash_attention`` launches at
+    D = 256 a prefill) against the same model through ``"dot"``, layer
+    0's q, k, v through the kernel against its plain version,
+    ``serve.generate`` and decode against prefill.  The model is freed
+    afterwards."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.api import build_model
+    from repro_torch.nn.param import count_params
+
+    tag = "serve-gemma"
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(GEMMA_ARCH),
+                              attention_impl="kernel")
+    model = build_model(cfg)
+    params, init_s = _timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = count_params(params)
+    log(f"[{tag}] {cfg.name}: {n_params:,} parameters (float32, drawn on "
+        f"the card from seed 0) in {init_s:.3f} s; {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim()}, {cfg.mlp_activation}, tied embeddings "
+        f"{cfg.tie_embeddings}; compute dtype {cfg.dtype}")
+    per_prefill = {"flash_attention": cfg.num_layers}
+    dot = build_model(dataclasses.replace(cfg, attention_impl="dot"))
+    launches, prompts, rows = _serve_prefills(tag, model, dot, params,
+                                              counted, per_prefill)
+    for (b, s), p, row in zip(PREFILLS, prompts, rows):
+        row["layer0_flash"] = _flash_layer_check(
+            tag, fa_ops, layer0_qkv(model, params, p), s,
+            cfg.sliding_window, f"layer 0 of prefill {(b, s)}")
+        torch.cuda.empty_cache()
+    out = dict(params=n_params, init_s=init_s, launches=launches,
+               per_prefill=per_prefill, prefill=rows,
+               generate=_serve_generate(tag, model, params))
+    report["serve_gemma"] = out
+    del params, model, dot
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_main_path(ac, dg, counted, report):
@@ -2612,7 +2988,7 @@ def main() -> int:
                 fn = demangle(_build, line.split("'")[1])
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name} {fn}: {line.strip()}")
-    hgmma = check_flash_sass(_build)
+    hgmma = check_flash_sass(_build, fa.HEAD_DIMS)
     report["flash_hgmma"] = hgmma
     log(f"[build] flash_attention bf16 kernel SASS: HGMMA instructions "
         f"{hgmma}")
@@ -2658,10 +3034,30 @@ def main() -> int:
     # 5b. the rwkv serve path at full width and depth, counted
     rwkv_launches, rwkv_model, rwkv_params = phase_serve_rwkv(counted,
                                                               report)
+    # 5c, 5d. zamba2-7b and gemma-7b at full width and depth, counted,
+    # each freed before the next loads
+    t0 = time.perf_counter()
+    zamba = phase_serve_zamba(counted, report)
+    gemma = phase_serve_gemma(counted, report)
+    report["serve_5c_5d_s"] = time.perf_counter() - t0
+    log(f"[serve] phases 5c and 5d: {report['serve_5c_5d_s']:.1f} s")
+    rows["ssm_scan"] += zamba["ssm_rows"]
     # each kernel's count from the path that runs it
     launches = dict(launches,
                     flash_attention=serve_launches["flash_attention"],
                     ssm_scan=rwkv_launches["ssm_scan"])
+    by_path = {
+        "flash_attention": {
+            f"{LM_ARCH} prefills {PREFILLS}":
+                serve_launches["flash_attention"],
+            f"{ZAMBA_ARCH} prefills {PREFILLS}":
+                zamba["launches"]["flash_attention"],
+            f"{GEMMA_ARCH} prefills {PREFILLS}":
+                gemma["launches"]["flash_attention"]},
+        "ssm_scan": {
+            f"{RWKV_ARCH} prefills {RWKV_PREFILLS}": rwkv_launches["ssm_scan"],
+            f"{ZAMBA_ARCH} prefills {PREFILLS}":
+                zamba["launches"]["ssm_scan"]}}
 
     # 6. GPU against the CPU port on small inputs
     phase_small_reference()
@@ -2688,6 +3084,16 @@ def main() -> int:
             library_ms=main["library_ms"]))
         if "device_us" in main:     # the CUDA kernels behind the wrapper
             kernels[-1]["cuda_kernels"] = main["device_us"]
+        if name in by_path:         # every path and timed shape
+            kernels[-1]["launches_by_path"] = by_path[name]
+            kernels[-1]["shapes"] = [
+                {k: r.get(k) for k in ("path", "shape", "dtype", "window",
+                                       "variant", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "max_abs_err",
+                                       "unit_rms_max_abs_err", "device_us",
+                                       "device_records")
+                 if k in r} for r in rs if "ms" in r]
     # alpha_combine's other paths: the comparison matrix and the sim runs
     ac_row = next(k for k in kernels if k["name"] == "alpha_combine")
     ac_row["launches_by_path"] = dict(

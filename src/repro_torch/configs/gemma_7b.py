@@ -1,0 +1,20 @@
+"""gemma-7b [dense] — 28L d_model=3072 16H (kv=16) d_ff=24576
+vocab=256000; GeGLU, head_dim=256.  [arXiv:2403.08295]
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="gemma-7b",
+    arch_type="dense",
+    num_layers=28,
+    d_model=3072,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=256,
+    d_ff=24576,
+    vocab_size=256000,
+    mlp_activation="geglu",
+    tie_embeddings=True,
+    sliding_window=8192,
+    source="arXiv:2403.08295",
+))

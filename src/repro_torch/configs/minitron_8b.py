@@ -1,0 +1,19 @@
+"""minitron-8b [dense] — 32L d_model=4096 32H (GQA kv=8) d_ff=16384
+vocab=256000; pruned nemotron.  [arXiv:2407.14679]
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="minitron-8b",
+    arch_type="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab_size=256000,
+    mlp_activation="swiglu",
+    sliding_window=8192,
+    source="arXiv:2407.14679",
+))

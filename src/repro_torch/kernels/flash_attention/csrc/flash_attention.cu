@@ -35,7 +35,15 @@
 //     then the K/V tiles of 64 keys, by TMA into a ring of two stages
 //     with mbarriers (tile j + 1 lands while tile j computes).  TMA
 //     swizzles the tiles as the wgmma descriptors read them and
-//     zero-fills rows past Sq or Sk.  3 blocks an SM (2 at D = 128).
+//     zero-fills rows past Sq or Sk.  3 blocks an SM (2 at D = 112 and
+//     128, 1 at 256).
+//   * D = 112 (zamba2-7b's shared attention) is staged and multiplied as
+//     DP = 128: TMA's tensor map keeps the real 112 columns and fills
+//     columns 112-127 with zeros, which add nothing to the scores; P V's
+//     columns past 112 are never stored.  It costs 1/8 more MMA work.
+//     D = 256 (gemma-7b) holds a 64 x 256 fp32 output tile, 128
+//     registers a thread, beside S and P's halves; P V runs as
+//     m64n256k16 wgmmas (two a k-step: P's hi and lo halves).
 //   * S = QK^T by wgmma m64n64k16 with both operands in shared memory
 //     (bf16 in, exact products, fp32 sums); the 1/sqrt(D) scale (times
 //     log2 e) is applied to the fp32 score, never to bf16 q.  The online
@@ -73,8 +81,9 @@
 //   p^T tiles staged in shared memory as fp32; each thread owns a 4-row x
 //   8-key block of the scores and a 4-row x D/8 block of the
 //   accumulator, fp32 FMAs (67 TFLOP/s peak), which keeps fp32 inputs
-//   within fp32 rounding of the reference.  Only tests and checks pass
-//   fp32.
+//   within fp32 rounding of the reference.  At D = 256 its tiles take
+//   222,208 bytes of shared memory, under the 232,448 a block may opt
+//   into.  Only tests and checks pass fp32.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,8 +122,9 @@ constexpr int smem_bytes() {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
-  constexpr int VEC = D >= 32 ? 4 : 2;  // accumulator dims per load
-  constexpr int NCH = D / (8 * VEC);    // such loads per key
+  // accumulator dims per load (2 where 32 does not divide D: 16, 112)
+  constexpr int VEC = D % 32 == 0 ? 4 : 2;
+  constexpr int NCH = D / (8 * VEC);  // such loads per key
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;            // [D][QS]  q^T * scale
   float* kt = qt + D * QS;     // [D][KS]  k^T
@@ -282,17 +292,23 @@ struct Params {
   float scale;
 };
 
-// A tile of 64 rows in shared memory: D >= 64 as D / 64 blocks of
+// A tile of 64 rows in shared memory: D >= 64 as DP / 64 blocks of
 // 128-byte rows (64 columns), each block swizzled as TMA's 128B mode
 // writes it; D = 32 and 16 as one block of 64- or 32-byte rows in the
 // 64B / 32B modes.  The wgmma descriptors name the same swizzle (MODE).
+// DP is D rounded up to a whole block (112 -> 128): TMA zero-fills the
+// columns past D, which add nothing to Q K^T and give P V columns that
+// are never stored, so the products run at DP and only D is written.
 template <int D>
 struct Geo {
-  static constexpr int RB = D >= 64 ? 128 : 2 * D;  // bytes a row a block
-  static constexpr int NSUB = D >= 64 ? D / 64 : 1;
+  static constexpr int DP = D < 64 ? D : (D + 63) / 64 * 64;
+  static constexpr int RB = DP >= 64 ? 128 : 2 * DP;  // bytes a row a block
+  static constexpr int NSUB = DP >= 64 ? DP / 64 : 1;
   static constexpr uint32_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;
-  static constexpr int TILE = BQ * D * 2;  // bytes of a Q, K or V tile
+  static constexpr int TILE = BQ * DP * 2;  // bytes of a Q, K or V tile
   static constexpr int SMEM = 1024 + (1 + 2 * STAGES) * TILE + 64;
+  // blocks an SM: shared memory allows 3 up to DP = 64, 2 at 128, 1 at 256
+  static constexpr int BLOCKS = DP >= 256 ? 1 : DP >= 128 ? 2 : 3;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -462,6 +478,52 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
 __device__ __forceinline__ float ex2(float x) {  // 2^x, 0 for -inf
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -476,7 +538,7 @@ __device__ __forceinline__ uint32_t pack(float a, float b) {
 // of the S and O tiles: element 4 j + e is column 8 j + 2 (lane % 4) + e % 2
 // of row 16 w + g + 8 (e / 2), the m16n8k16 C layout repeated along N.
 
-// S = Q K^T over D in k-steps of 16, issued and awaited
+// S = Q K^T over DP in k-steps of 16, issued and awaited
 template <int D>
 __device__ __forceinline__ void qk(float (&s)[BK / 2], uint32_t q_a,
                                    uint32_t k_a) {
@@ -485,7 +547,7 @@ __device__ __forceinline__ void qk(float (&s)[BK / 2], uint32_t q_a,
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
+  for (int ks = 0; ks < G::DP / 16; ++ks) {
     const uint32_t off = (ks / KPA) * (BQ * G::RB) + (ks % KPA) * 32;
     wgmma_ss(s, desc(q_a + off, 0, 8 * G::RB, G::MODE),
              desc(k_a + off, 0, 8 * G::RB, G::MODE), ks > 0);
@@ -499,7 +561,7 @@ __device__ __forceinline__ void qk(float (&s)[BK / 2], uint32_t q_a,
 // halves, issued and awaited.  V (keys x D) is MN-major: 8-key groups
 // SBO apart, 64-column blocks LBO apart.
 template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 2],
+__device__ __forceinline__ void pv(float (&o)[Geo<D>::DP / 2],
                                    uint32_t (&ph)[BK / 16][4],
                                    uint32_t (&pl)[BK / 16][4],
                                    uint32_t v_a) {
@@ -524,7 +586,8 @@ __device__ __forceinline__ void pv(float (&o)[D / 2],
 // move on, O is rescaled.  MASK: the tile straddles the diagonal, the
 // window's lower edge or Sk's end; the others take no mask arithmetic.
 template <int D, bool MASK>
-__device__ __forceinline__ void softmax(float (&s)[BK / 2], float (&o)[D / 2],
+__device__ __forceinline__ void softmax(float (&s)[BK / 2],
+                                        float (&o)[Geo<D>::DP / 2],
                                         float (&m)[2], float (&l)[2], int k0,
                                         int qpos, const Params& p, float c,
                                         int lane) {
@@ -561,7 +624,7 @@ __device__ __forceinline__ void softmax(float (&s)[BK / 2], float (&o)[D / 2],
       }
     l[r] = l[r] * corr + sum;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < Geo<D>::DP / 8; ++j) {
       o[4 * j + 2 * r] *= corr;
       o[4 * j + 2 * r + 1] *= corr;
     }
@@ -591,7 +654,7 @@ __device__ __forceinline__ void split_p(const float (&s)[BK / 2],
 // of STAGES, each stage's `full` barrier counting its bytes in and its
 // `empty` barrier the 4 consumer warps out.
 template <int D>
-__global__ void __launch_bounds__(THREADS, D == 128 ? 2 : 3)
+__global__ void __launch_bounds__(THREADS, Geo<D>::BLOCKS)
     flash_fwd_tc_kernel(const __grid_constant__ Params p) {
   using G = Geo<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -652,9 +715,10 @@ __global__ void __launch_bounds__(THREADS, D == 128 ? 2 : 3)
   const int row = 16 * warp + (lane >> 2);  // the thread's row g
   const int qpos = q0 + row + offset;
   const float c = p.scale * LOG2E;  // scores to log2 units, in fp32
-  float o[D / 2], s[BK / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[G::DP / 2], s[BK / 2], m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < G::DP / 2; ++i) o[i] = 0.f;
   uint32_t ph[BK / 16][4], pl[BK / 16][4];
 
   mbar_wait(qbar, 0);
@@ -674,7 +738,8 @@ __global__ void __launch_bounds__(THREADS, D == 128 ? 2 : 3)
   }
 
   // o = acc / l, rounded once to bf16, through this warp's own 16 rows
-  // of the Q tile (no other warp reads them) for 16-byte stores
+  // of the Q tile (no other warp reads them) for 16-byte stores of the
+  // first D columns
   constexpr int CA = G::RB / 16;  // 16-byte chunks a row a block
   auto at = [&](int r, int ch) {
     return q_a + (ch / CA) * (BQ * G::RB) + r * G::RB +
@@ -687,7 +752,7 @@ __global__ void __launch_bounds__(THREADS, D == 128 ? 2 : 3)
     l[r] = fmaxf(l[r], 1e-20f);
   }
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < G::DP / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at(row + 8 * r, j) +
@@ -740,7 +805,7 @@ EncodeTiled encoder() {
 
 // (B, S, heads, D) bf16 with element strides s_b, s_s, s_h, read in
 // boxes of 64 rows of one head and at most 64 columns, swizzled as Geo
-// says; rows past S read as zeros
+// says; rows past S and columns past D read as zeros
 bool make_map(CUtensorMap* map, const void* base, int D, int S, int heads,
               int B, long long s_b, long long s_s, long long s_h) {
   const EncodeTiled encode = encoder();
@@ -811,14 +876,18 @@ int dispatch(const Params& p, int B, int D, int dtype, cudaStream_t s) {
       case 16: return launch<float, 16>(p, B, s);
       case 32: return launch<float, 32>(p, B, s);
       case 64: return launch<float, 64>(p, B, s);
+      case 112: return launch<float, 112>(p, B, s);
       case 128: return launch<float, 128>(p, B, s);
+      case 256: return launch<float, 256>(p, B, s);
     }
   } else if (dtype == 1) {
     switch (D) {
       case 16: return tc::launch<16>(p, B, s);
       case 32: return tc::launch<32>(p, B, s);
       case 64: return tc::launch<64>(p, B, s);
+      case 112: return tc::launch<112>(p, B, s);
       case 128: return tc::launch<128>(p, B, s);
+      case 256: return tc::launch<256>(p, B, s);
     }
   }
   return (int)cudaErrorInvalidValue;

@@ -12,12 +12,13 @@ same call.  The kernel reads the (B, S, H, D) tensors through their
 strides and masks ragged edges itself, so the wrapper pads and
 transposes nothing.  On the H100 it is bound by its 4 D flops per live
 (query, key) pair.  bf16 inputs (the serve path) take the tensor-core
-kernel: Q and K/V tiles staged by ``cp.async``, both products on
-``mma.sync``, P split into two bf16 halves so that the output stays
-within one bf16 ulp of the plain version.  fp32 inputs take the SIMT
-kernel (fp32 FMAs from shared memory).  Both keep the online softmax in
-registers and skip key tiles wholly outside a query tile's causal or
-window range (see the source's header).
+kernel: Q and K/V tiles staged by TMA, both products on ``wgmma``, P
+split into two bf16 halves so that the output stays within one bf16 ulp
+of the plain version; D = 112 is staged and multiplied as 128 (TMA
+zero-fills the extra columns).  fp32 inputs take the SIMT kernel (fp32
+FMAs from shared memory).  Both keep the online softmax in registers and
+skip key tiles wholly outside a query tile's causal or window range (see
+the source's header).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -2.0e9
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURE = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
               + (ctypes.c_longlong,) * 12 + (ctypes.c_int,) * 2

@@ -2,7 +2,7 @@
 
 The port of the serving half of ``repro.models.common``; the chunked
 cross-entropy and the dry-run input specs belong to training and the
-sharded slice (``ROADMAP.md`` queue 1, item 14).
+HLO accounting (``ROADMAP.md`` queue 1, items 6.3 and 6.7).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense family (llama3.2, repro-100m): the port of
-``repro.models.decoder.DecoderLM``'s serving path.
+"""Decoder-only LM, dense family (llama3.2, repro-100m, gemma, granite,
+minitron): the port of ``repro.models.decoder.DecoderLM``'s serving path.
 
 Parameters keep JAX's layer-stacked layout (``layers/attn/wq`` is
 (L, D, H, hd)); JAX's ``lax.scan`` over layers is a Python loop over
@@ -38,11 +38,11 @@ class DecoderLM(LMBase):
         if cfg.moe is not None:
             raise NotImplementedError(
                 f"{cfg.name}: MoE layers are not ported yet (ROADMAP.md "
-                f"queue 1, item 14: MoE)")
+                f"queue 1, item 6.4: MoE)")
         if cfg.frontend.kind != "none":
             raise NotImplementedError(
                 f"{cfg.name}: stub frontends are not ported yet "
-                f"(ROADMAP.md queue 1, item 14)")
+                f"(ROADMAP.md queue 1, item 6.5)")
         super().__init__(cfg)
 
     def param_specs(self):

@@ -1,0 +1,169 @@
+"""Zamba2-style hybrid: Mamba2 backbone with *shared* attention blocks; the
+port of ``repro.models.zamba.ZambaModel``'s serving path.
+
+81 mamba layers are run in groups of ``attn_every``; after each group one
+of ``num_shared_blocks`` shared transformer blocks (attn+MLP, weights reused
+across applications) is applied, alternating — the Zamba2 parameter-sharing
+trick (arXiv:2411.15242).  As in JAX, the shared block takes the hidden
+state directly: no concatenation with the embedding and no per-use LoRA.
+
+Parameters keep JAX's layer-stacked layout; JAX's ``lax.scan`` over a
+group is a Python loop over ``take_layer``.  The cache is JAX's
+``{"mamba": (conv (L,B,W-1,C), ssm (L,B,H,N,hd) fp32), "kv": {"k", "v"}
+(G,B,kv_len,KV,hd)}`` with one KV ring buffer per group (G applications
+of the shared blocks); ``decode_step`` updates it in place and returns it.
+The prefill runs the ``ssm_scan`` kernel once a mamba layer (``scan_impl=
+"kernel"``; ``"plain"`` runs ``nn.linear_attn.gla_chunked``) and the
+attention through ``cfg.attention_impl``.  ``loss`` comes with the
+training slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.common import LMBase, stack_specs, take_layer
+from repro_torch.nn import attention as attn
+from repro_torch.nn import mamba
+from repro_torch.nn import mlp as mlp_lib
+from repro_torch.nn import param as P
+from repro_torch.nn.layers import (embed, embedding_spec, rmsnorm,
+                                   rmsnorm_spec, unembed)
+
+
+def _mamba_layer_specs(cfg):
+    return {"ln": rmsnorm_spec(cfg.d_model), "mix": mamba.mamba_specs(cfg)}
+
+
+def _shared_block_specs(cfg):
+    hd = cfg.resolved_head_dim()
+    return {
+        "ln1": rmsnorm_spec(cfg.d_model),
+        "attn": attn.attention_specs(cfg.d_model, cfg.num_heads,
+                                     cfg.num_kv_heads, hd),
+        "ln2": rmsnorm_spec(cfg.d_model),
+        "mlp": mlp_lib.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_activation),
+    }
+
+
+def _zeros(specs, device):
+    """Zeros of a tree (dicts and tuples) of specs on ``device``."""
+    if isinstance(specs, dict):
+        return {k: _zeros(v, device) for k, v in specs.items()}
+    if isinstance(specs, tuple):
+        return tuple(_zeros(v, device) for v in specs)
+    return torch.zeros(specs.shape, dtype=getattr(torch, specs.dtype),
+                       device=device)
+
+
+class ZambaModel(LMBase):
+    def __init__(self, cfg, scan_impl: str = "kernel"):
+        super().__init__(cfg)
+        if scan_impl not in ("kernel", "plain"):
+            raise ValueError(f"ZambaModel: scan_impl {scan_impl!r} is not "
+                             f"'kernel' or 'plain'")
+        self.scan_impl = scan_impl
+        k = cfg.hybrid.attn_every
+        n = cfg.num_layers
+        self.group_sizes = [k] * (n // k) + ([n % k] if n % k else [])
+        self.group_offsets = [sum(self.group_sizes[:i])
+                              for i in range(len(self.group_sizes))]
+
+    def param_specs(self):
+        cfg = self.cfg
+        return {
+            "embedding": embedding_spec(cfg.vocab_size, cfg.d_model),
+            "layers": stack_specs(_mamba_layer_specs(cfg), cfg.num_layers),
+            "shared": stack_specs(_shared_block_specs(cfg),
+                                  cfg.hybrid.num_shared_blocks),
+            "ln_f": rmsnorm_spec(cfg.d_model),
+            "unembed": P.ParamSpec((cfg.vocab_size, cfg.d_model),
+                                   ("vocab", "embed"), init="embed",
+                                   scale=0.02),
+        }
+
+    # --------------------------------------------------------------- shared
+    def _shared_attn(self, sp, x, positions, kv_cache=None, pos=None):
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        hn = rmsnorm(x, sp["ln1"], cfg.norm_eps)
+        kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                  head_dim=cfg.resolved_head_dim(),
+                  rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+                  dtype=dt)
+        if kv_cache is None:
+            a = attn.attend(sp["attn"], hn, positions, causal=True,
+                            impl=cfg.attention_impl, **kw)
+        else:
+            a, _ = attn.decode_attend(sp["attn"], hn, kv_cache, pos, **kw)
+        x = x + a
+        y = mlp_lib.mlp(sp["mlp"], rmsnorm(x, sp["ln2"], cfg.norm_eps),
+                        cfg.mlp_activation, dt)
+        return x + y
+
+    def _backbone(self, params, x, positions, cache=None, pos=None):
+        """The groups of mamba layers, each followed by its shared block;
+        from the zero state (prefill: the new states are dropped, as JAX's
+        ``prefill`` drops them) or one decode step on ``cache``, updated
+        in place."""
+        cfg = self.cfg
+        nsb = cfg.hybrid.num_shared_blocks
+        for gi, (off, size) in enumerate(zip(self.group_offsets,
+                                             self.group_sizes)):
+            for i in range(off, off + size):
+                lp = take_layer(params["layers"], i)
+                hn = rmsnorm(x, lp["ln"], cfg.norm_eps)
+                if cache is None:
+                    m, _ = mamba.mamba_block(lp["mix"], hn, cfg,
+                                             impl=self.scan_impl)
+                else:
+                    conv, ssm = cache["mamba"]
+                    m, (conv[i], ssm[i]) = mamba.mamba_decode(
+                        lp["mix"], hn, cfg, state=(conv[i], ssm[i]))
+                x = x + m
+            sp = take_layer(params["shared"], gi % nsb)
+            kvc = None if cache is None else take_layer(cache["kv"], gi)
+            x = self._shared_attn(sp, x, positions, kv_cache=kvc, pos=pos)
+        return x
+
+    # ------------------------------------------------------------- serving
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        cfg = self.cfg
+        x = embed(batch["tokens"], params["embedding"],
+                  getattr(torch, cfg.dtype))
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        h = rmsnorm(self._backbone(params, x, positions), params["ln_f"],
+                    cfg.norm_eps)
+        return unembed(h[:, -1:], params["unembed"])
+
+    def cache_specs(self, batch: int, max_len: int):
+        cfg = self.cfg
+        kv_len = min(max_len, cfg.sliding_window or max_len)
+        n_groups = len(self.group_sizes)
+        mstate = mamba.mamba_state_specs(batch, cfg, cfg.dtype)
+        mstate = tuple(stack_specs(s, cfg.num_layers) for s in mstate)
+        kv = stack_specs(attn.cache_specs(batch, kv_len, cfg.num_kv_heads,
+                                          cfg.resolved_head_dim(), cfg.dtype),
+                         n_groups)
+        return {"mamba": mstate, "kv": kv}
+
+    def init_cache(self, batch: int, max_len: int,
+                   device: DeviceLike = None):
+        """Zeros of ``cache_specs`` on ``device`` (default: the GPU)."""
+        return _zeros(self.cache_specs(batch, max_len),
+                      resolve_device(device))
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, batch):
+        """One token for every row.  ``cache`` is updated in place and
+        returned: each mamba layer's conv and SSD state, and each group's
+        KV ring buffer (window ``cfg.sliding_window``)."""
+        cfg = self.cfg
+        x = embed(batch["token"], params["embedding"],
+                  getattr(torch, cfg.dtype))
+        pos = batch["pos"]
+        h = self._backbone(params, x, pos[:, None], cache=cache, pos=pos)
+        h = rmsnorm(h, params["ln_f"], cfg.norm_eps)
+        return unembed(h, params["unembed"]), cache

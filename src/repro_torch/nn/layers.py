@@ -24,6 +24,15 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def mm(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w.astype(dtype)`` with JAX's promotion: float32 activations
+    against bfloat16 weights give a float32 product of the rounded
+    weights."""
+    w = w.to(dtype)
+    t = torch.promote_types(x.dtype, w.dtype)
+    return x.to(t) @ w.to(t)
+
+
 # ---------------------------------------------------------------- embedding
 def embedding_spec(vocab: int, dim: int) -> ParamSpec:
     return ParamSpec((vocab, dim), ("vocab", "embed"), init="embed",

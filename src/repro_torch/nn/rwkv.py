@@ -10,7 +10,8 @@ norm and ``silu(g)`` gating.  ``time_mix`` runs the WKV through the
 where JAX calls its ``nn.linear_attn.gla_chunked``; ``time_mix_decode``
 steps ``gla_decode``.  The casts are JAX's: weights are cast to ``dtype``
 (bfloat16 unless given; the JAX model passes none) and a product of
-activations and weights of two dtypes is taken in the wider (``_mm``).
+activations and weights of two dtypes is taken in the wider
+(``nn.layers.mm``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.nn.layers import mm
 from repro_torch.nn.linear_attn import gla_chunked, gla_decode
 from repro_torch.nn.param import ParamSpec
 
@@ -59,15 +61,6 @@ def channel_mix_specs(cfg: ModelConfig):
     }
 
 
-def _mm(x, w, dtype):
-    """``x @ w.astype(dtype)`` with JAX's promotion: float32 activations
-    against bfloat16 weights give a float32 product of the rounded
-    weights."""
-    w = w.to(dtype)
-    t = torch.promote_types(x.dtype, w.dtype)
-    return x.to(t) @ w.to(t)
-
-
 def _shift(x, prev):
     """x: (B,S,D); prev: (B,D) last token of the previous segment."""
     return torch.cat([prev[:, None], x[:, :-1]], dim=1)
@@ -93,10 +86,10 @@ def _rkvgw(p, x, xs, h, hd, dtype):
     xg = _lerp(x, xs, p["mu_g"])
     xw = _lerp(x, xs, p["mu_w"])
     b, s, _ = x.shape
-    r = _mm(xr, p["wr"], dtype).reshape(b, s, h, hd)
-    k = _mm(xk, p["wk"], dtype).reshape(b, s, h, hd)
-    v = _mm(xv, p["wv"], dtype).reshape(b, s, h, hd)
-    g = _mm(xg, p["wg"], dtype)
+    r = mm(xr, p["wr"], dtype).reshape(b, s, h, hd)
+    k = mm(xk, p["wk"], dtype).reshape(b, s, h, hd)
+    v = mm(xv, p["wv"], dtype).reshape(b, s, h, hd)
+    g = mm(xg, p["wg"], dtype)
     lora = torch.tanh(xw.float() @ p["w_lora_a"].float()) \
         @ p["w_lora_b"].float()
     log_w = -F.softplus(p["w0"].float() + lora)          # (B,S,D) <= 0
@@ -108,7 +101,7 @@ def _out(p, y, g, dtype):
     b, s = y.shape[:2]
     y = _group_norm(y, p["ln_scale"]).reshape(b, s, -1)
     y = y * F.silu(g.float()).to(y.dtype)
-    return _mm(y, p["wo"], dtype)
+    return mm(y, p["wo"], dtype)
 
 
 def time_mix(p, x, cfg: ModelConfig, *, prev_x, state,
@@ -144,7 +137,7 @@ def channel_mix(p, x, *, prev_x, dtype=torch.bfloat16):
     xs = _shift(x, prev_x)
     xk = _lerp(x, xs, p["mu_k"])
     xr = _lerp(x, xs, p["mu_r"])
-    kk = torch.square(F.relu(_mm(xk, p["wk"], dtype)))
-    vv = _mm(kk, p["wv"], dtype)
-    r = torch.sigmoid(_mm(xr, p["wr"], dtype).float()).to(dtype)
+    kk = torch.square(F.relu(mm(xk, p["wk"], dtype)))
+    vv = mm(kk, p["wv"], dtype)
+    r = torch.sigmoid(mm(xr, p["wr"], dtype).float()).to(dtype)
     return r * vv, x[:, -1]

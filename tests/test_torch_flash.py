@@ -11,6 +11,7 @@ import torch
 
 from repro.kernels.flash_attention import ops as jfa
 from repro.kernels.flash_attention.kernel import flash_attention_bhsd
+from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_attention import ops as fa
 
 torch.set_num_threads(2)          # six test workers share the box
@@ -66,6 +67,36 @@ def test_flash_gqa_takes_unrepeated_kv(sq, sk, window):
     np.testing.assert_allclose(out, ref, **TOL["float32"])
 
 
+# the head dims of zamba2-7b's shared attention (112) and gemma-7b (256):
+# causal, windowed, a history offset and bidirectional, GQA, ragged S
+HEAD_DIM_GRID = [
+    (1, 80, 80, 4, 2, 112, True, None),
+    (2, 70, 70, 2, 2, 112, True, 24),
+    (1, 40, 96, 2, 1, 256, True, None),
+    (1, 64, 64, 2, 2, 256, False, None),
+    (1, 90, 90, 4, 4, 256, True, 33),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", HEAD_DIM_GRID)
+def test_flash_plain_head_dims_match_pallas_and_ref(b, sq, sk, h, kv, d,
+                                                    causal, window, dtype):
+    """The Pallas kernel takes any D (its BlockSpecs take it from the
+    input); the port's wrapper takes D = 112 and 256 too.  Its plain
+    version against the Pallas kernel in interpret mode and against the
+    jnp oracle ``attention_ref``, at test_kernels.py's tolerances."""
+    q, k, v = _qkv(b, sq, sk, h, d, kv=kv)
+    out, ref = _both(q, k, v, dtype, causal=causal, window=window)
+    np.testing.assert_allclose(out, ref, **TOL[dtype])
+    rep = h // kv
+    oracle = attention_ref(*[jnp.asarray(a, dtype) for a in (
+        q, np.repeat(k, rep, axis=2), np.repeat(v, rep, axis=2))],
+        causal=causal, window=window)
+    np.testing.assert_allclose(out, np.asarray(oracle, np.float32),
+                               **TOL[dtype])
+
+
 def test_flash_fully_masked_rows_stay_finite():
     """Sq > Sk, causal: the first Sq - Sk queries sit before every key.
     Both kernels give 0 there (p zeroed, l floored at 1e-20)."""
@@ -111,7 +142,8 @@ def test_flash_wrapper_rejects_bad_inputs():
 # against the same bf16 v, one rounding of the output to bf16.
 FLASH_BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -7)      # one bf16 ulp
 NUMERICS_GRID = [(256, 2, 1, 16, None), (256, 2, 1, 64, None),
-                 (256, 2, 1, 128, None), (384, 4, 2, 64, 100)]
+                 (256, 2, 1, 128, None), (384, 4, 2, 64, 100),
+                 (256, 2, 1, 112, None), (256, 2, 1, 256, 100)]
 
 
 def _kernel_emulation(q, k, v, window, split):

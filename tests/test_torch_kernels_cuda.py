@@ -605,3 +605,67 @@ def test_sharded_pool_on_separate_cards(cards):
         **base, scenario="channel-drift", mesh=1), device="cuda:0").run())
     assert all(v.device == torch.device("cuda", 1)
                for v in one.state.params.values())
+
+
+# The head dims added for zamba2-7b's shared attention (112: staged as
+# 128, TMA zero-filling the rest) and gemma-7b (256), on FLASH_GRID's
+# edges: ragged query tiles, a window edge on the tile before the
+# diagonal's, sq > sk with fully masked rows, bidirectional with a
+# history, GQA.  These tests sit last in the file, so that the inputs
+# the tests above draw from RNG stay as they were.
+FLASH_HEAD_DIM_GRID = [
+    (2, 130, 130, 4, 4, 112, True, None),
+    (1, 200, 200, 8, 2, 112, True, 65),
+    (1, 48, 32, 2, 2, 112, True, None),
+    (1, 77, 150, 4, 1, 112, False, None),
+    (2, 130, 130, 4, 4, 256, True, None),
+    (1, 200, 200, 8, 2, 256, True, 65),
+    (1, 48, 32, 2, 2, 256, True, None),
+    (1, 77, 150, 4, 1, 256, False, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32,
+                                        dict(atol=3e-5, rtol=1e-4)),
+                                       (torch.bfloat16,
+                                        dict(atol=1e-5, rtol=2.0 ** -7))])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window",
+                         FLASH_HEAD_DIM_GRID)
+def test_flash_attention_kernel_at_model_head_dims_on_card(
+        cuda, b, sq, sk, h, kv, d, causal, window, dtype, tol):
+    test_flash_attention_kernel_on_card(cuda, b, sq, sk, h, kv, d, causal,
+                                        window, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-7b", "gemma-7b"])
+def test_prefill_at_the_models_head_dim_goes_through_the_kernels(cuda,
+                                                                 arch):
+    """zamba2-7b (D = 112: one flash call a group, three ssm_scan kernels
+    a mamba layer) and gemma-7b (D = 256: one flash call a layer) at
+    3 layers of d_model 128 with their own head dim, fp32, 80 tokens
+    past the reduced window of 64: the card against the CPU port."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssm_scan import ops as ss
+    from repro_torch.models.api import build_model
+    full = get_config(arch)
+    cfg = dataclasses.replace(full.reduced(num_layers=3, d_model=128),
+                              head_dim=full.head_dim, dtype="float32",
+                              attention_impl="kernel")
+    model = build_model(cfg)
+    hybrid = cfg.arch_type == "hybrid"
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab_size, (2, 80)),
+                           device=cuda)
+    before = fa.flash_attention.launches, ss.gla_chunked.launches
+    out = model.prefill(params, {"tokens": toks})
+    assert fa.flash_attention.launches == before[0] + (
+        len(model.group_sizes) if hybrid else cfg.num_layers)
+    assert ss.gla_chunked.launches == before[1] + (
+        SSM_KERNELS * cfg.num_layers if hybrid else 0)
+    cpu = model.prefill(model.init(torch.Generator().manual_seed(0),
+                                   device="cpu"), {"tokens": toks.cpu()})
+    torch.testing.assert_close(out.cpu(), cpu, atol=1e-4, rtol=1e-4)

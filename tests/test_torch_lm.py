@@ -67,7 +67,9 @@ def _as_port(d):
 
 
 @pytest.mark.parametrize("name",
-                         ["llama3.2-1b", "repro-100m", "rwkv6-1.6b"])
+                         ["llama3.2-1b", "repro-100m", "rwkv6-1.6b",
+                          "gemma-7b", "granite-34b", "minitron-8b",
+                          "zamba2-7b"])
 def test_config_copies_match_jax(name):
     j, t = jget_config(name), tconfigs.get_config(name)
     assert dataclasses.asdict(t) == _as_port(dataclasses.asdict(j))
@@ -77,12 +79,14 @@ def test_config_copies_match_jax(name):
     assert t.resolved_head_dim() == j.resolved_head_dim()
     assert t.supports_long_context == j.supports_long_context
     assert convert.ATTENTION_IMPL_FROM_JAX == IMPLS
-    assert sorted(tconfigs.all_configs()) == ["llama3.2-1b", "repro-100m",
-                                              "rwkv6-1.6b"]
+    assert sorted(tconfigs.all_configs()) == [
+        "gemma-7b", "granite-34b", "llama3.2-1b", "minitron-8b",
+        "repro-100m", "rwkv6-1.6b", "zamba2-7b"]
 
 
 def test_param_specs_and_count_match_jax():
-    for name in ("llama3.2-1b", "repro-100m"):
+    for name in ("llama3.2-1b", "repro-100m", "gemma-7b", "granite-34b",
+                 "minitron-8b"):
         cfg = tconfigs.get_config(name)
         t, j = build_model(cfg).param_specs(), \
             jbuild_model(jget_config(name)).param_specs()
@@ -233,24 +237,34 @@ def _prefill_pair(dtype, s, **over):
     return out.numpy(), ref
 
 
+# the dense configs at reduced size: llama3.2-1b (GQA, SwiGLU), gemma-7b
+# (GeGLU, tied embeddings), granite-34b (MQA, GELU), minitron-8b (GQA,
+# SwiGLU)
+DENSE = ["llama3.2-1b", "gemma-7b", "granite-34b", "minitron-8b"]
+
+
+@pytest.mark.parametrize("name", DENSE)
 @pytest.mark.parametrize("over", [dict(sliding_window=None),
                                   dict(sliding_window=24)])
-def test_prefill_kernel_matches_jax_pallas_f32(over):
-    out, ref = _prefill_pair("float32", 64, **over)
+def test_prefill_kernel_matches_jax_pallas_f32(over, name):
+    out, ref = _prefill_pair("float32", 64, name=name, **over)
     np.testing.assert_allclose(out, ref, **F32)
 
 
-def test_prefill_kernel_matches_jax_pallas_bf16():
-    out, ref = _prefill_pair("bfloat16", 64, sliding_window=None)
+@pytest.mark.parametrize("name", DENSE)
+def test_prefill_kernel_matches_jax_pallas_bf16(name):
+    out, ref = _prefill_pair("bfloat16", 64, name=name, sliding_window=None)
     np.testing.assert_allclose(out, ref, **BF16)
     assert np.array_equal(out.argmax(-1), ref.argmax(-1))
 
 
+@pytest.mark.parametrize("name", DENSE)
 @pytest.mark.parametrize("cache_len,window", [(16, None), (8, 8)])
-def test_decode_steps_match_jax(cache_len, window):
+def test_decode_steps_match_jax(cache_len, window, name):
     """12 decode steps; with ``sliding_window == cache_len`` the model
     picks the ring-buffer cache itself."""
-    jm, jp, tm, tp = _model_pair(dtype="float32", sliding_window=window)
+    jm, jp, tm, tp = _model_pair(name, dtype="float32",
+                                 sliding_window=window)
     toks = _tokens(jm.cfg, (2, 12))
     jc, tc = jm.init_cache(2, cache_len), tm.init_cache(2, cache_len,
                                                         device="cpu")
@@ -309,7 +323,7 @@ def test_serve_cli_on_cpu(capsys):
 
 def test_unported_families_raise():
     base = tconfigs.get_config("llama3.2-1b")
-    for over in (dict(arch_type="hybrid"),
+    for over in (dict(encdec=tconfigs.EncDecConfig()),
                  dict(moe=tconfigs.MoEConfig()),
                  dict(frontend=tconfigs.FrontendStub("vision", 4, 8))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
