@@ -40,9 +40,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
              a strong -8 +- 0.5 that takes the diagonal blocks' per-pair
              branch), bf16 r/k/v with fp32 log_w and all fp32 (y in bf16
              within one ulp, in fp32 within 1e-5 / 1e-4, the state within
-             1e-5 / 1e-4), and to the same bars against the plain version
-             with its products summed in float64 (its fp32 sums alone lie
-             up to ~0.8 of the fp32 bar from those); timed at the serve
+             1e-5 / 1e-4; the plain version sums its products in
+             float64 from the same fp32 factors); timed at the serve
              shapes with each of its three kernels' device time (the
              profiler must see each exactly once a call), and against the
              fp32 token-by-token recurrence at (1, 512).
@@ -58,12 +57,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
              the four alpha-baselines on ST-LF's psi, the four
              psi-baselines) on that state, counted: ``alpha_combine``
              once a method; FADA's columns sum to one at its targets;
-             on the card its gaps agree with the CPU port's on the same
-             draws within 2 rows of a pair's data and its weights within
-             1e-2 of their largest entry (the discriminators' SGD
-             amplifies float32 noise in the features, see
-             ``FADA_GAP_ROWS``), and half the learning rate (a planted
-             fault) breaks both bars.
+             on the card, in float64, its gaps agree with the CPU port's
+             on the same draws within 2 rows of a pair's data and its
+             weights within 1e-2 of their largest entry, and half the
+             learning rate (a planted fault) breaks both bars; its
+             float32 features agree within 1e-5 of their largest entry
+             (the discriminators' SGD amplifies float32 rounding past
+             any bar, see ``FADA_KW``: the float32 gaps and weights are
+             reported beside the CPU's own float32-to-float64 distance).
 4c. sim    — the simulator's sync path through its CLI
              (``python -m repro_torch.sim.run``, ``--trace``): the
              default run (channel-drift, 8 devices, 5 rounds; a pool of
@@ -93,10 +94,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
              runs agree, and the resumed rounds with the uninterrupted
              ones, on the decisions; the kernel against its plain
              version on the last round's transfer inputs.
-4e. sim-shard — the sharded device pool, counted: the default run cut
-             to 3 rounds through ``--mesh 1``, then at an emulated mesh
-             of 4 (every shard on this card) and on the single-device
-             pool through the Python API: equal decisions,
+4e. sim-shard — the sharded device pool, counted, every cold solve at a
+             quarter of the default budget (4 x 300 inner steps): the
+             default run cut to 3 rounds through ``--mesh 1``, then at
+             an emulated mesh of 4 (every shard on this card) and on
+             the single-device pool through the Python API: equal
+             decisions,
              ``alpha_combine`` one slab a shard a round, the three
              pools' transfers of one state within 1e-5; 'faulty' with
              shard losses at an emulated mesh of 2 (6 devices, 4
@@ -138,7 +141,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
              prefill; the logits against the same model through
              ``"dot"`` and the plain scan (LM_TOL, argmax equal); layer
              0's SSD inputs through ``ssm_scan`` against its plain
-             version and its float64 sums (as the model makes them, and
+             version (float64 sums; as the model makes them, and
              with C, B and v at unit RMS), timed; shared block 0's q, k,
              v through the kernel against its plain version; then
              ``serve.generate`` (32 greedy tokens after a (4, 64)
@@ -149,6 +152,28 @@ Phases, each of which raises on failure (the script then exits nonzero):
              ``flash_attention`` launches a prefill, logits against
              ``"dot"``, layer 0's q, k, v, generate, the invariant.
              Freed.
+7. train   — (run after 5d, before 6) repro-100m at full width and
+             depth (12 layers, d_model 768, ~129 M parameters) through
+             ``python -m repro_torch.launch.train``'s ``main``: 30 steps
+             at (8, 512) on ``LMStream``, counted (no kernel runs: JAX
+             trains through plain code too); every logged loss finite,
+             the last below the first by 0.5 nat; ms a step and tokens/s
+             over steps 2-30 (host clock between synchronizes, the first
+             step apart, checkpoint writes left out), peak memory, a
+             profiler window over three more steps; a second run to step
+             25 restores step 20's checkpoint (bit for bit) and trains
+             on.  Three fp32 train steps of repro-100m, rwkv6-1.6b and
+             zamba2-7b at ``reduced()`` on the card and on the CPU port
+             (loss within 1e-5 relative, each leaf's change within 1e-3
+             of its norm).  ``attention_impl="kernel"`` under grad
+             raises; under ``no_grad`` its loss runs ``flash_attention``
+             once a layer, within 2e-2 of the dot route's.
+7d. stlf-lm — ST-LF over LM clients (``python -m
+             repro_torch.stlf_lm_clients``), counted: ``alpha_combine``
+             once, at S = T = 6 and P = 590,464, held against its plain
+             version (1e-5) on the run's own inputs and timed beside
+             ``matmul``; at least one target, unit alpha columns there,
+             each target's error falling; the phase split.
 6. checks  — the disagreement kernel on the trained models' predictions
              and the transfer against their plain versions, and the GPU
              against the port on the CPU at a small size (the ST-LF
@@ -222,17 +247,48 @@ FLASH_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7),
 # PREFILLS, the second past their 8192-token window
 ZAMBA_ARCH, GEMMA_ARCH = "zamba2-7b", "gemma-7b"
 HEAD_DIM_PATHS = [(ZAMBA_ARCH, 32, 112), (GEMMA_ARCH, 16, 256)]
+# phase 7, training: repro-100m (JAX's train.py default) at full width
+# and depth through launch.train: (steps, batch, seq, log every,
+# checkpoint every, the restored run's last step); the loss must fall by
+# TRAIN_MIN_DROP nat over the logged steps (ln 32768 ~ 10.4 at init)
+TRAIN_ARCH = "repro-100m"
+TRAIN_RUN = (30, 8, 512, 5, 20, 25)
+TRAIN_MIN_DROP = 0.5
+# the families whose train steps are held card against CPU at reduced(),
+# three fp32 steps of adamw(TRAIN_LR): the losses within 1e-5 relative;
+# the first step's gradients, each leaf within TRAIN_GRAD_TOL of its norm;
+# each leaf's change after three steps within TRAIN_DELTA_TOL of its norm
+# over the elements whose changes agree within TRAIN_LR, and at most
+# TRAIN_FLIP_SHARE of a leaf's elements apart by more (Adam's first steps
+# are about +-lr by the gradient's sign: a near-zero gradient whose sign
+# the summation order flips moves its element a whole step; 11 of the
+# 262,144 in rwkv6's embedding, 2 in zamba2-7b's, in a development run).
+# rwkv6 and zamba2-7b keep bf16 rounding points in an fp32 config, as in
+# JAX (their projections' weights are cast to bf16 at use, rwkv6's
+# receptance gate is rounded to bf16): their gradients agree to 4.1e-4
+# and 5.6e-5 of a leaf (repro-100m 1.4e-6), and Adam's normalisation
+# carries that into their changes (rwkv6 1.1e-3 on att/wg with no flip;
+# zamba2-7b 1.3e-3 on another batch, the card tests')
+TRAIN_CARD_CPU = ["repro-100m", "rwkv6-1.6b", "zamba2-7b"]
+TRAIN_LR = 3e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_DELTA_TOL = {"repro-100m": 1e-3, "rwkv6-1.6b": 5e-3,
+                   "zamba2-7b": 5e-3}
+TRAIN_FLIP_SHARE = 1e-4
+# the loss through the flash kernel (no_grad) against the dot route,
+# bf16 compute at full width
+KERNEL_LOSS_TOL = 2e-2
 RWKV_ARCH = "rwkv6-1.6b"
 # (B, L) of the rwkv serve path's two prefills: a batch of 2k prompts,
 # and one long prompt at batch 1, the case a linear-attention model is
 # chosen for
 RWKV_PREFILLS = [(4, 2048), (1, 16384)]
-# ssm_scan against its plain version: y in bf16 within one bf16 ulp (both
-# sum in fp32 and round once), y in fp32 within summation order, the
-# final state (fp32) likewise; and to the same bars against the plain
-# version with its products summed in float64 from the same fp32 factors
-# (its fp32 sums, in cuBLAS's order, are themselves up to ~0.8 of the
-# fp32 bar from those at rwkv6's scale)
+# ssm_scan against its plain version, which sums its products in float64
+# from the same fp32 factors: y in bf16 within one bf16 ulp (both round
+# once), y in fp32 within the kernels' fp32 summation order, the final
+# state (fp32) likewise (fp32 sums in cuBLAS's order lay up to 0.87 of
+# the fp32 bar from the float64 ones at rwkv6's scale, the kernels' up to
+# 0.69: tools/ssm_scan_fp32_bar.py)
 SSM_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7),
            torch.float32: dict(atol=1e-5, rtol=1e-4)}
 SSM_STATE_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -250,14 +306,22 @@ RECUR_TOL = dict(atol=1e-3, rtol=1e-4)
 FADA_KW = dict(iters=40, batch=16, lr=0.05)   # fada_alpha's defaults
 # FADA on the card against the CPU port on the same draws.  The
 # discriminators' SGD steps far past stability (a row's |f|^2 reaches
-# ~850 at lr 0.05), so float32 noise in the features (cuDNN's against
-# the CPU's: ~6e-7 of the largest entry) moves w.  Gaps: at most 2 rows
-# of a pair apart (measured: 0; noise ten times the measured one moves
-# 1 row).  w: within 1e-2 of its largest entry (measured up to 2.5e-3;
-# noise ten times the measured one: 3.1e-3).  Half the learning rate
-# moves both far past the bars (PERF.md §6).
+# ~850 at lr 0.05), so it amplifies rounding 1e3-1e7 times: in float32
+# the CPU port's own run lies 1-4 rows and 3e-3 to 1.2e-2 of max |w|
+# from its float64 run on ST-LF's pairs, and 113-237 rows and 0.11-0.20
+# over all 90 pairs (tools/fada_fp32_noise.py).  A float32 bar measures
+# that noise, not the card, so the card is held to the CPU in float64
+# (the same code on float64 parameters and data; a 1e-15 relative nudge
+# moves w by at most 1.7e-8 of its largest entry, the card 4e-10 from
+# the CPU): gaps at most 2 rows of a pair apart, w within
+# 1e-2 of its largest entry; half the learning rate moves both far past
+# the bars (PERF.md §6).  The float32 features (cuDNN's against the
+# CPU's: 5.1e-7 to 5.6e-7 of the largest entry in four runs) are held to
+# 1e-5, and the float32 gaps and weights are reported beside the CPU's
+# own float32-to-float64 distance.
 FADA_GAP_ROWS = 2
 FADA_W_TOL = 1e-2
+FADA_FEAT_TOL = 1e-5
 # the simulator's runs on the card: (scenario, devices, rounds); the
 # default run (8 devices, no spares: a pool of 8, the transfer's one
 # mma.sync kernel a round), then device-churn at 16 devices (4 spares: a
@@ -285,8 +349,13 @@ SHARD_MESH = 4
 # defaults otherwise: (devices, rounds, the round after which the child
 # run is SIGKILLed)
 SHARD_FAULTY = (6, 4, 1)
+# phase 4e's cold solves at a quarter of the CLI's default budget (8 x
+# 600 inner steps): (solver_max_outer, solver_inner_steps), the warm
+# budget unchanged; the three pools of (1) still share one budget
+SHARD_SOLVER = (4, 300)
 SHARD_FAULTY_CFG = dict(scenario="faulty", mesh=2, fault_shard_p=0.7,
-                        fault_crash_p=0.0)
+                        fault_crash_p=0.0, solver_max_outer=SHARD_SOLVER[0],
+                        solver_inner_steps=SHARD_SOLVER[1])
 # the pool's phases at simulator scale (no bootstrap, no solve), as
 # benchmarks/sim_scale.py's dry rows take them: pool size, the emulated
 # mesh timed beside mesh 1, and the Algorithm-1 batch's pairs
@@ -1012,49 +1081,39 @@ def _over(out, ref, tol):
 
 
 def check_ssm(ss, q, k, v, lw, chunk, variant, bonus, s0, what):
-    """The kernels against their plain version on the same inputs, and
-    against the plain version with its products summed in float64 from
-    the same fp32 factors (``gla_chunked_float64_sums``): against each, y
-    within SSM_TOL of its dtype and the final state within SSM_STATE_TOL,
-    all finite.  Returns the errors against the plain version (max abs of
-    y and of the state, the largest over the bar), the largest over the
-    bar against float64 sums, the plain version's own there, and y's
-    RMS."""
+    """The kernels against their plain version on the same inputs, which
+    sums its products in float64 from the same fp32 factors: y within
+    SSM_TOL of its dtype and the final state within SSM_STATE_TOL, all
+    finite.  Returns the errors (max abs of y and of the state, the
+    largest over the bar) and y's RMS."""
     y, s = ss.gla_chunked(q, k, v, lw, chunk=chunk, variant=variant,
                           bonus=bonus, initial_state=s0)
     torch.cuda.synchronize()
-    kw = dict(chunk=chunk, variant=variant, bonus=bonus, initial_state=s0)
-    py, ps = ss.gla_chunked_plain(q, k, v, lw, **kw)
-    xy, xs = ss.gla_chunked_float64_sums(q, k, v, lw, **kw)
+    py, ps = ss.gla_chunked_plain(q, k, v, lw, chunk=chunk, variant=variant,
+                                  bonus=bonus, initial_state=s0)
     tol = SSM_TOL[v.dtype]
     finite = bool(torch.isfinite(y).all() and torch.isfinite(s).all())
-    for name, ry, rs in (("the plain version", py, ps),
-                         ("the plain version's float64 sums", xy, xs)):
-        if y.dtype != v.dtype or not finite \
-                or not torch.allclose(y.float(), ry.float(), **tol) \
-                or not torch.allclose(s, rs, **SSM_STATE_TOL):
-            raise AssertionError(
-                f"ssm_scan {what} against {name}: y max abs err "
-                f"{float((y.float() - ry.float()).abs().max())} (largest "
-                f"error {_over(y, ry, tol):.3g} x the bar {tol}, "
-                f"{_beyond(y, ry, tol)} elements beyond), state max abs "
-                f"err {float((s - rs).abs().max())} (bar {SSM_STATE_TOL}, "
-                f"{_beyond(s, rs, SSM_STATE_TOL)} beyond), finite {finite}")
+    if y.dtype != v.dtype or not finite \
+            or not torch.allclose(y.float(), py.float(), **tol) \
+            or not torch.allclose(s, ps, **SSM_STATE_TOL):
+        raise AssertionError(
+            f"ssm_scan {what} against the plain version: y max abs err "
+            f"{float((y.float() - py.float()).abs().max())} (largest "
+            f"error {_over(y, py, tol):.3g} x the bar {tol}, "
+            f"{_beyond(y, py, tol)} elements beyond), state max abs "
+            f"err {float((s - ps).abs().max())} (bar {SSM_STATE_TOL}, "
+            f"{_beyond(s, ps, SSM_STATE_TOL)} beyond), finite {finite}")
     return dict(max_abs_err=float((y.float() - py.float()).abs().max()),
                 state_max_abs_err=float((s - ps).abs().max()),
                 err_over_bar=_over(y, py, tol),
-                err_over_bar_vs_float64_sums=_over(y, xy, tol),
-                plain_over_bar_vs_float64_sums=_over(py, xy, tol),
                 y_rms=float(py.float().square().mean().sqrt()))
 
 
 def ssm_note(c, tol):
-    return (f"against the plain version y max abs err {c['max_abs_err']:.3g}"
-            f" ({c['err_over_bar']:.3g} of the bar {tol}, y RMS "
-            f"{c['y_rms']:.3g}), state {c['state_max_abs_err']:.3g}; "
-            f"against its float64 sums {c['err_over_bar_vs_float64_sums']:.3g}"
-            f" of the bar (the plain version "
-            f"{c['plain_over_bar_vs_float64_sums']:.3g})")
+    return (f"against the plain version (float64 sums) y max abs err "
+            f"{c['max_abs_err']:.3g} ({c['err_over_bar']:.3g} of the bar "
+            f"{tol}, y RMS {c['y_rms']:.3g}), state "
+            f"{c['state_max_abs_err']:.3g}")
 
 
 def ssm_device_us(ss, run, calls=5, windows=3):
@@ -1731,6 +1790,303 @@ def phase_serve_gemma(counted, report):
     return out
 
 
+def _train_batch(vocab, b, s, seed):
+    """A (B, S) batch of random tokens and labels on the card."""
+    r = np.random.default_rng(seed)
+    return {k: torch.as_tensor(r.integers(0, vocab, (b, s)),
+                               device="cuda") for k in ("tokens", "labels")}
+
+
+def _profile_train_steps(step_fn, params, opt_state, batch, steps=3):
+    """Device busy share and the kernels' device time over ``steps``
+    train steps (a torch.profiler window after a warm-up step)."""
+    from torch.profiler import ProfilerActivity, profile
+    params, opt_state, _, _ = step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            params, opt_state, _, _ = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(k[1] for k in kernels)
+    kernels.sort(key=lambda k: -k[1])
+    return dict(steps=steps, wall_ms_a_step=wall_us / steps / 1e3,
+                device_ms_a_step=busy / steps / 1e3,
+                busy_share=busy / wall_us if busy else None,
+                kernels_a_step=sum(k[2] for k in kernels) / steps,
+                top=[dict(name=k[0][:80], ms_a_step=k[1] / steps / 1e3,
+                          calls_a_step=k[2] / steps) for k in kernels[:10]])
+
+
+def card_vs_cpu_steps(card, cpu, init):
+    """Two runs' (losses, first-step gradients, parameters after the
+    steps) compared: the largest relative loss gap, the largest leaf
+    gradient gap over its norm, and each leaf's change apart over its
+    norm on the elements whose changes agree within TRAIN_LR, beside the
+    count (and the largest share of a leaf) of the elements apart by
+    more: Adam's first steps are about +-lr by the gradient's sign, so a
+    near-zero gradient whose sign the summation order flips moves its
+    element by a whole step."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    grad_rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                   for a, b in zip(card[1], cpu[1]))
+    delta_rel, flipped, share = 0.0, 0, 0.0
+    for a, b, p0 in zip(card[2], cpu[2], init):
+        da, db = a - p0, b - p0
+        flip = (da - db).abs() > TRAIN_LR
+        keep = ~flip
+        delta_rel = max(delta_rel, float(
+            (da - db)[keep].norm() / db[keep].norm().clamp_min(1e-30)))
+        flipped += int(flip.sum())
+        share = max(share, float(flip.double().mean()))
+    return dict(losses_card=card[0], losses_cpu=cpu[0], loss_rel=loss_rel,
+                grad_rel=grad_rel, delta_rel=delta_rel, flipped=flipped,
+                flipped_share=share)
+
+
+def phase_train(counted, report):
+    """Phase 7: LM training through the port's entry points.  (a)
+    ``launch.train.main`` trains repro-100m at full width and depth for
+    TRAIN_RUN's steps on ``LMStream`` (finite losses that fall by at
+    least TRAIN_MIN_DROP nat; ms a step and tokens/s; peak memory), a
+    profiler window over three more steps, then a second run restores the
+    step TRAIN_RUN's checkpoint wrote (bit for bit) and trains on.  (b)
+    Three train steps of each TRAIN_CARD_CPU family at ``reduced()`` in
+    fp32 on the card and on the CPU port from the same parameters and
+    batches.  (c) ``attention_impl="kernel"`` under grad raises
+    (no backward kernel); under ``no_grad`` the loss runs
+    ``flash_attention`` once a layer, counted, within KERNEL_LOSS_TOL of
+    the dot route."""
+    from repro_torch.checkpoint import load_arrays
+    from repro_torch.checkpoint.store import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMStream, LMStreamConfig
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model
+    from repro_torch.nn.param import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+
+    out = {}
+    steps, b, s, log_every, every, steps2 = TRAIN_RUN
+    ckpt = ROOT / "build" / "train"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--batch", str(b), "--seq", str(s),
+            "--log-every", str(log_every), "--ckpt-dir", str(ckpt),
+            "--ckpt-every", str(every), "--device", "cuda"]
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated()      # earlier phases' tensors
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counted)
+    run = train.main(argv + ["--steps", str(steps)])
+    launches = read_counts(counted)
+    peak = torch.cuda.max_memory_allocated() - live
+    losses = run["losses"]
+    first, last = losses[min(losses)], losses[max(losses)]
+    if not all(np.isfinite(v) for v in losses.values()) \
+            or first - last < TRAIN_MIN_DROP:
+        raise AssertionError(f"[train] {TRAIN_ARCH}: logged losses "
+                             f"{losses} do not fall by {TRAIN_MIN_DROP}")
+    if any(launches.values()):
+        raise AssertionError(f"[train] the training path launched "
+                             f"{launches}: it trains through plain code")
+    a = dict(params=run["n_params"], steps=steps, batch=b, seq=s,
+             losses=losses, first_step_s=run["first_step_s"],
+             ms_a_step=run["step_s"] * 1e3,
+             tokens_s=b * s / run["step_s"], ckpt_write_s=run["ckpt_s"],
+             wall_s=run["wall_s"], peak_bytes=peak, live_bytes=live,
+             launches=launches)
+    log(f"[train] {TRAIN_ARCH}: {run['n_params']:,} parameters, {steps} "
+        f"steps at ({b}, {s}); loss {first:.4f} -> {last:.4f}; first step "
+        f"{run['first_step_s'] * 1e3:.1f} ms; steps 2-{steps} "
+        f"{a['ms_a_step']:.3f} ms a step, {a['tokens_s']:.0f} tokens/s; "
+        f"checkpoint writes {run['ckpt_s']:.3f} s; peak memory "
+        f"{peak / 1e9:.2f} GB above the {live / 1e9:.2f} GB earlier phases "
+        f"hold; kernel launches {launches}")
+    step_fn = tsteps.make_train_step(run["cfg"],
+                                     opt_state_dtype=torch.float32)
+    stream = LMStream(LMStreamConfig(vocab_size=run["cfg"].vocab_size))
+    toks, labs = stream.sample(b, s, seed=steps + 1)
+    batch = {"tokens": torch.as_tensor(toks, device="cuda"),
+             "labels": torch.as_tensor(labs, device="cuda")}
+    a["profile"] = _profile_train_steps(step_fn, run["params"],
+                                        run["opt_state"], batch)
+    pr = a["profile"]
+    log(f"[train] profile of {pr['steps']} steps: {pr['wall_ms_a_step']:.3f}"
+        f" ms a step on the host clock, {pr['device_ms_a_step']:.3f} ms of "
+        f"kernels (busy share {pr['busy_share']}), "
+        f"{pr['kernels_a_step']:.0f} kernels a step; top: " + "; ".join(
+            f"{k['name']} {k['ms_a_step']:.3f} ms x{k['calls_a_step']:.0f}"
+            for k in pr["top"][:6]))
+    del run, step_fn
+    torch.cuda.empty_cache()
+
+    run2 = train.main(argv + ["--steps", str(steps2)])
+    _, saved = load_arrays(str(ckpt), every)
+    restored = flatten_tree(run2["restored"])
+    unequal = [k for k, v in restored.items()
+               if not torch.equal(v.cpu(), torch.from_numpy(saved[k]))]
+    if run2["start"] != every or unequal \
+            or sorted(restored) != sorted(saved) \
+            or not all(np.isfinite(v) for v in run2["losses"].values()):
+        raise AssertionError(f"[train] restore: start {run2['start']}, "
+                             f"leaves unequal {unequal}, losses "
+                             f"{run2['losses']}")
+    a["restore"] = dict(start=run2["start"], steps=steps2,
+                        losses=run2["losses"], leaves=len(restored))
+    log(f"[train] restored step {run2['start']}: {len(restored)} leaves bit "
+        f"for bit as saved; steps {every + 1}-{steps2} losses "
+        f"{run2['losses']}")
+    out["full"] = a
+
+    # (c) the kernel route under training, on the restored run's weights
+    params = run2["params"]
+    cfg = get_config(TRAIN_ARCH)
+    kmodel = build_model(dataclasses.replace(cfg, attention_impl="kernel"))
+    dmodel = build_model(dataclasses.replace(cfg, attention_impl="dot"))
+    kbatch = {"tokens": batch["tokens"], "labels": batch["labels"]}
+    try:
+        tsteps.value_and_grad(lambda p: kmodel.loss(p, kbatch), params)
+    except RuntimeError as e:
+        if "flash_attention" not in str(e):
+            raise
+        refused = str(e).split(";")[0]
+    else:
+        raise AssertionError("[train] a loss through attention_impl="
+                             "'kernel' under grad did not raise")
+    with torch.no_grad():
+        zero_counts(counted)
+        lk, _ = kmodel.loss(params, kbatch)
+        torch.cuda.synchronize()
+        klaunch = read_counts(counted)
+        ld, _ = dmodel.loss(params, kbatch)
+    gap = abs(float(lk) - float(ld))
+    if klaunch["flash_attention"] != cfg.num_layers or gap > KERNEL_LOSS_TOL:
+        raise AssertionError(f"[train] kernel-route loss: launches "
+                             f"{klaunch}, |loss - dot's| {gap}")
+    out["kernel_route"] = dict(refused=refused, launches=klaunch,
+                               loss_kernel=float(lk), loss_dot=float(ld),
+                               gap=gap)
+    log(f"[train] attention_impl='kernel' under grad raises ({refused}); "
+        f"under no_grad at ({b}, {s}) bf16: {klaunch['flash_attention']} "
+        f"flash_attention launches, loss {float(lk):.5f} against the dot "
+        f"route's {float(ld):.5f} (gap {gap:.3g}, bar {KERNEL_LOSS_TOL})")
+    del run2, params, kmodel, dmodel
+    torch.cuda.empty_cache()
+
+    # (b) card against CPU, three steps each, reduced, fp32
+    out["card_vs_cpu"] = {}
+    for arch in TRAIN_CARD_CPU:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        model = build_model(cfg)
+        init = model.init(torch.Generator().manual_seed(0), "cpu")
+        step_fn = tsteps.make_train_step(cfg, opt_state_dtype=torch.float32)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda x: x.to(dev), init)
+            st = adamw(TRAIN_LR, weight_decay=0.1).init(p)
+            losses = []
+            for i in range(3):
+                r = np.random.default_rng(100 + i)
+                bt = {k: torch.as_tensor(r.integers(0, cfg.vocab_size,
+                                                    (2, 128)), device=dev)
+                      for k in ("tokens", "labels")}
+                if i == 0:
+                    _, g = tsteps.value_and_grad(
+                        lambda q: model.loss(q, bt), p)
+                    grads = [x.double().cpu() for x in tree_leaves(g)]
+                p, st, loss, _ = step_fn(p, st, bt)
+                losses.append(float(loss))
+            res[dev] = (losses, grads, [x.double().cpu()
+                                        for x in tree_leaves(p)])
+        c = out["card_vs_cpu"][arch] = card_vs_cpu_steps(
+            res["cuda"], res["cpu"], [x.double() for x in tree_leaves(init)])
+        log(f"[train] {arch} reduced fp32, 3 steps at (2, 128), card vs "
+            f"CPU: losses {c['losses_card']} vs {c['losses_cpu']} (largest "
+            f"relative gap {c['loss_rel']:.3g}); first-step gradients "
+            f"apart by at most {c['grad_rel']:.3g} of a leaf's norm; "
+            f"parameter changes by {c['delta_rel']:.3g} (bar "
+            f"{TRAIN_DELTA_TOL[arch]}) past {c['flipped']} flipped "
+            f"elements (at most {c['flipped_share']:.3g} of a leaf)")
+        if c["loss_rel"] > 1e-5 or c["grad_rel"] > TRAIN_GRAD_TOL \
+                or c["delta_rel"] > TRAIN_DELTA_TOL[arch] \
+                or c["flipped_share"] > TRAIN_FLIP_SHARE:
+            raise AssertionError(f"[train] {arch}: card and CPU steps "
+                                 f"differ: {c}")
+    report["train"] = out
+    return out
+
+
+def phase_lm_clients(ac, counted, report):
+    """Phase 7d: ST-LF over LM clients through
+    ``repro_torch.stlf_lm_clients.main``, counted: ``alpha_combine``
+    once, at S = T = 6 and the clients' P; the kernel against its plain
+    version on the run's own transfer inputs, timed beside ``matmul``
+    and its bound; at least one target, unit alpha columns there, and
+    each target's error falling after the transfer."""
+    from repro_torch import stlf_lm_clients as lmc
+    from repro_torch.nn.param import flatten_to_vector
+
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    r = lmc.main(["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = read_counts(counted)
+    psi, alpha = r["psi"], r["alpha"]
+    tgt = np.flatnonzero(psi == 1.0)
+    if launches["alpha_combine"] != 1 or any(
+            v for k, v in launches.items() if k != "alpha_combine"):
+        raise AssertionError(f"[stlf-lm] launches {launches}, want one "
+                             f"alpha_combine")
+    if not len(tgt) or not np.allclose(alpha[:, tgt].sum(0), 1.0,
+                                       atol=1e-6) \
+            or not all(t["after"] < t["before"]
+                       for t in r["targets"].values()):
+        raise AssertionError(f"[stlf-lm] psi {psi}, alpha {alpha}, "
+                             f"targets {r['targets']}")
+    theta = flatten_to_vector(r["stacked"], lead=1).contiguous()
+    al = torch.as_tensor(alpha, dtype=torch.float32, device="cuda")
+    s_, p_ = theta.shape
+    out = ac.alpha_combine(theta, al)
+    torch.cuda.synchronize()
+    plain = ac.alpha_combine_plain(theta, al)
+    err = float((out - plain).abs().max())
+    if not torch.allclose(out, plain, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"[stlf-lm] alpha_combine {(s_, s_, p_)}: max "
+                             f"abs err {err} beyond 1e-5")
+    b_ms, b_by = bound(4 * (s_ * p_ + s_ * s_ + s_ * p_), 2 * s_ * s_ * p_,
+                       PEAK_TF32_PER_S)
+    row = dict(path="stlf_lm_clients transfer", shape=[s_, s_, p_],
+               max_abs_err=err,
+               ms=cuda_ms(lambda: ac.alpha_combine(theta, al), 200),
+               plain_ms=cuda_ms(lambda: ac.alpha_combine_plain(theta, al),
+                                200),
+               library_ms=cuda_ms(lambda: torch.matmul(al.T, theta), 200),
+               bound_ms=b_ms, bound_by=b_by)
+    res = dict(wall_s=wall, walls=r["walls"], launches=launches,
+               psi=psi.tolist(), alpha=np.round(alpha, 4).tolist(),
+               eps_hat=r["eps_hat"].tolist(), div=r["div"].tolist(),
+               targets=r["targets"], kernel=row)
+    report["stlf_lm_clients"] = res
+    split = ", ".join(f"{k} {v:.3f}" for k, v in r["walls"].items())
+    log(f"[stlf-lm] {wall:.3f} s ({split}); "
+        f"psi {psi.astype(int).tolist()}; targets " + "; ".join(
+            f"{d}: eps {t['before']:.4f} -> {t['after']:.4f} from "
+            f"{t['sources']} (same domain {t['same_domain']})"
+            for d, t in r["targets"].items())
+        + f"; launches {launches}")
+    log(f"[stlf-lm] alpha_combine at ({s_}, {s_}, {p_}): max abs err "
+        f"{err:.3g}; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, matmul "
+        f"{row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by})")
+    return res
+
+
 def phase_main_path(ac, dg, counted, report):
     """The paper pipeline at full size through the port's entry points;
     ``counted`` maps every kernel's name to its wrapper."""
@@ -1834,12 +2190,16 @@ def phase_main_path(ac, dg, counted, report):
     return launches, state, stlf
 
 
-def _cpu_copy(state):
-    """The RoundState's clients and parameters on the CPU."""
+def _moved(state, device, dtype):
+    """The RoundState's clients and parameters on ``device``, floating
+    point in ``dtype``."""
+    def mv(t):
+        return t.to(device=device, dtype=dtype if t.is_floating_point()
+                    else t.dtype)
     c = state.clients
-    clients = type(c)(**{f.name: getattr(c, f.name).cpu()
-                         for f in dataclasses.fields(c)})
-    return clients, {k: v.cpu() for k, v in state.params.items()}
+    return (type(c)(**{f.name: mv(getattr(c, f.name))
+                       for f in dataclasses.fields(c)}),
+            {k: mv(v) for k, v in state.params.items()})
 
 
 def phase_baselines(ac, counted, state, stlf, report):
@@ -1896,53 +2256,70 @@ def phase_baselines(ac, counted, state, stlf, report):
             raise AssertionError(f"{name}: alpha columns, accuracies or "
                                  f"energy invalid")
 
-    # FADA's gaps on the card against the CPU port, on the same draws
+    # FADA's gaps on the card against the CPU port, on the same draws:
+    # held in float64, reported in float32 (see FADA_KW)
     srcs, tgts = np.flatnonzero(stlf.psi == 0), np.flatnonzero(stlf.psi == 1)
     si, ti = (a.ravel() for a in np.meshgrid(srcs, tgts, indexing="ij"))
     counts = state.clients.counts.cpu().numpy()
     draws = pair_draws(split_seed(3, len(si)), counts[si], counts[ti],
                        steps=FADA_KW["iters"], batch=FADA_KW["batch"])
+    on = {(d, dt): _moved(state, d, dt)
+          for d in ("cuda", "cpu") for dt in (torch.float32, torch.float64)}
     runs = {}
-    clients, params = _cpu_copy(state)
-    for dev, c, p, kw in (
-            ("cuda", state.clients, state.params, FADA_KW),
-            ("cpu", clients, params, FADA_KW),
-            ("fault", state.clients, state.params,
-             dict(FADA_KW, lr=FADA_KW["lr"] / 2))):
+    for tag, d, dt, kw in (
+            ("cuda64", "cuda", torch.float64, FADA_KW),
+            ("cpu64", "cpu", torch.float64, FADA_KW),
+            ("fault64", "cuda", torch.float64,
+             dict(FADA_KW, lr=FADA_KW["lr"] / 2)),
+            ("cuda32", "cuda", torch.float32, FADA_KW),
+            ("cpu32", "cpu", torch.float32, FADA_KW)):
+        c, p = on[d, dt]
         g, w, b = bl._domain_gap(p, c, si, ti, draws=draws, **kw)
-        runs[dev] = (g.cpu().numpy(), w.cpu(), b.cpu())
+        runs[tag] = (g.double().cpu().numpy(), w.double().cpu())
     with torch.no_grad():                       # the sources' own rows
-        feats = {dev: cnn._features_stacked(
-            {k: v[torch.as_tensor(srcs, device=c.x.device)]
-             for k, v in p.items()},
-            c.x[torch.as_tensor(srcs, device=c.x.device)]).cpu()
-            for dev, c, p in (("cuda", state.clients, state.params),
-                              ("cpu", clients, params))}
+        feats = {}
+        for d in ("cuda", "cpu"):
+            c, p = on[d, torch.float32]
+            rows_of = torch.as_tensor(srcs, device=c.x.device)
+            feats[d] = cnn._features_stacked(
+                {k: v[rows_of] for k, v in p.items()}, c.x[rows_of]).cpu()
     row = 4.0 / (counts[si] + counts[ti])       # one row of each pair's gap
-    ref_g, ref_w, _ = runs["cpu"]
 
-    def apart(dev):
+    def apart(a, ref):
         """(largest gap move in rows of its pair, max |dw| / max |w|)."""
-        g, w, _ = runs[dev]
-        return (float((np.abs(g - ref_g) / row).max()),
-                float((w - ref_w).abs().max() / ref_w.abs().max()))
+        (g, w), (rg, rw) = runs[a], runs[ref]
+        return (float((np.abs(g - rg) / row).max()),
+                float((w - rw).abs().max() / rw.abs().max()))
 
-    seen = {dev: apart(dev) for dev in ("cuda", "fault")}
+    seen = {"cuda": apart("cuda64", "cpu64"),
+            "fault": apart("fault64", "cpu64"),
+            "cuda32": apart("cuda32", "cpu32"),
+            "cpu32": apart("cpu32", "cpu64")}
     feat_rel = float((feats["cuda"] - feats["cpu"]).abs().max()
                      / feats["cpu"].abs().max())
-    for dev, what in (("cuda", "GPU vs CPU"),
-                      ("fault", "planted fault (lr / 2) on the GPU vs CPU")):
+    for dev, what in (("cuda", "GPU vs CPU in float64"),
+                      ("fault", "planted fault (lr / 2) on the GPU vs CPU "
+                                "in float64")):
         log(f"[baselines] FADA {what}, {len(si)} pairs on the same draws: "
             f"gaps {seen[dev][0]:.4g} rows apart at most (bar "
             f"{FADA_GAP_ROWS} rows), w {seen[dev][1]:.3g} of max |w| (bar "
             f"{FADA_W_TOL})")
-    log(f"[baselines] FADA features GPU vs CPU: {feat_rel:.3g} of the "
-        f"largest entry; gaps {np.round(runs['cuda'][0], 4).tolist()}")
-    if not (np.isfinite(runs["cuda"][0]).all()
+    log(f"[baselines] FADA in float32 (not held: the SGD amplifies "
+        f"rounding): GPU vs CPU gaps {seen['cuda32'][0]:.4g} rows, w "
+        f"{seen['cuda32'][1]:.3g}; the CPU's own float32 vs its float64 "
+        f"gaps {seen['cpu32'][0]:.4g} rows, w {seen['cpu32'][1]:.3g}")
+    log(f"[baselines] FADA float32 features GPU vs CPU: {feat_rel:.3g} of "
+        f"the largest entry (bar {FADA_FEAT_TOL}); float32 gaps "
+        f"{np.round(runs['cuda32'][0], 4).tolist()}")
+    if not (np.isfinite(runs["cuda64"][0]).all()
+            and np.isfinite(runs["cuda32"][0]).all()
             and seen["cuda"][0] <= FADA_GAP_ROWS
             and seen["cuda"][1] <= FADA_W_TOL):
         raise AssertionError("FADA: the card's discriminators differ from "
                              "the CPU port's")
+    if not feat_rel <= FADA_FEAT_TOL:
+        raise AssertionError("FADA: the card's float32 features differ "
+                             "from the CPU port's")
     if not (seen["fault"][0] > FADA_GAP_ROWS
             and seen["fault"][1] > FADA_W_TOL):
         raise AssertionError("FADA: the bars do not see a planted fault")
@@ -1951,8 +2328,13 @@ def phase_baselines(ac, counted, state, stlf, report):
         methods={k: dict(target_acc=r.target_acc, energy=r.energy,
                          transmissions=r.transmissions,
                          psi=r.psi.tolist()) for k, r in res.items()},
-        fada_gpu_vs_cpu=dict(gap_rows=seen["cuda"][0], w_rel=seen["cuda"][1],
-                             features_rel=feat_rel),
+        fada_gpu_vs_cpu_f64=dict(gap_rows=seen["cuda"][0],
+                                 w_rel=seen["cuda"][1]),
+        fada_gpu_vs_cpu_f32=dict(gap_rows=seen["cuda32"][0],
+                                 w_rel=seen["cuda32"][1],
+                                 features_rel=feat_rel),
+        fada_cpu_f32_vs_f64=dict(gap_rows=seen["cpu32"][0],
+                                 w_rel=seen["cpu32"][1]),
         fada_fault_lr_half=dict(gap_rows=seen["fault"][0],
                                 w_rel=seen["fault"][1]))
 
@@ -2432,7 +2814,8 @@ def phase_sim_shard(ac, counted, report, dev="cuda"):
         "--scenario", scenario, "--devices", str(n), "--rounds",
         str(rounds), "--mesh", "1", "--out",
         str(out_dir / f"{tag}-mesh1.jsonl"), "--trace", "--quiet",
-        "--device", dev])
+        "--solver-max-outer", str(SHARD_SOLVER[0]),
+        "--solver-inner-steps", str(SHARD_SOLVER[1]), "--device", dev])
     runs["mesh 1 (CLI)"] = (1, eng, rows, time.perf_counter() - t0,
                             read_counts(counted))
     for name, mesh in ((f"mesh {SHARD_MESH} (emulated)", SHARD_MESH),
@@ -2950,6 +3333,7 @@ def phase_small_rwkv():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3042,6 +3426,13 @@ def main() -> int:
     report["serve_5c_5d_s"] = time.perf_counter() - t0
     log(f"[serve] phases 5c and 5d: {report['serve_5c_5d_s']:.1f} s")
     rows["ssm_scan"] += zamba["ssm_rows"]
+    # 7. training at full width (launch.train, a restore), card against
+    # CPU, the kernel route under training; ST-LF over LM clients, counted
+    t0 = time.perf_counter()
+    train_out = phase_train(counted, report)
+    lm_clients = phase_lm_clients(ac, counted, report)
+    report["train_7_s"] = time.perf_counter() - t0
+    log(f"[train] phase 7: {report['train_7_s']:.1f} s")
     # each kernel's count from the path that runs it
     launches = dict(launches,
                     flash_attention=serve_launches["flash_attention"],
@@ -3053,7 +3444,9 @@ def main() -> int:
             f"{ZAMBA_ARCH} prefills {PREFILLS}":
                 zamba["launches"]["flash_attention"],
             f"{GEMMA_ARCH} prefills {PREFILLS}":
-                gemma["launches"]["flash_attention"]},
+                gemma["launches"]["flash_attention"],
+            f"{TRAIN_ARCH} loss under no_grad {TRAIN_RUN[1:3]} (a check)":
+                train_out["kernel_route"]["launches"]["flash_attention"]},
         "ssm_scan": {
             f"{RWKV_ARCH} prefills {RWKV_PREFILLS}": rwkv_launches["ssm_scan"],
             f"{ZAMBA_ARCH} prefills {PREFILLS}":
@@ -3120,7 +3513,13 @@ def main() -> int:
         **{f"pool-scale n={POOL_SCALE[0]} {name} (2 calls)":
            r["launches"]["alpha_combine"]
            for name, r in scale["phases"].items()
-           if name.endswith("transfer")})
+           if name.endswith("transfer")},
+        **{"stlf_lm_clients transfer":
+           lm_clients["launches"]["alpha_combine"]})
+    # the LM clients' transfer: S = T = 6 at their ~0.59 M parameters
+    ac_row["lm_clients_transfer"] = lm_clients["kernel"]
+    report["script_s"] = time.perf_counter() - t_start
+    log(f"[done] {report['script_s']:.1f} s from start to the report")
     log("[report] " + json.dumps(report))
     log(smi)
     log(json.dumps({"kernels": kernels}))

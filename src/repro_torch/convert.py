@@ -62,9 +62,12 @@ ATTENTION_IMPL_FROM_JAX = {"xla": "dot", "chunked": "chunked",
 
 def lm_params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
     """A nested dict (or tuple, or list) of numpy arrays in JAX's layout
-    (``jax.tree_util.tree_map(np.asarray, model.init(key))``, or a
-    model's cache such as RWKV's state tuple) -> the same tree of tensors
-    on ``device``, each in its own dtype (bfloat16 arrays included)."""
+    (``jax.tree_util.tree_map(np.asarray, model.init(key))``, a model's
+    cache such as RWKV's state tuple, or an optimizer state such as
+    ``adamw``'s {"step", "m", "v"}) -> the same tree of tensors on
+    ``device``, each in its own dtype (bfloat16 arrays included; a
+    ``None`` leaf, as ``sgd``'s state without momentum holds, stays
+    ``None``)."""
     dev = resolve_device(device)
 
     def leaf(a):
@@ -75,6 +78,8 @@ def lm_params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
         return torch.tensor(a, device=dev)
 
     def conv(t):
+        if t is None:
+            return None
         if isinstance(t, Mapping):
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, (tuple, list)):
@@ -91,5 +96,7 @@ def lm_params_to_numpy(params: Any) -> Any:
         return {k: lm_params_to_numpy(v) for k, v in params.items()}
     if isinstance(params, (tuple, list)):
         return type(params)(lm_params_to_numpy(v) for v in params)
+    if params is None:
+        return None
     v = params.detach()
     return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()

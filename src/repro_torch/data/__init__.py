@@ -6,3 +6,4 @@ from repro_torch.data.partition import (  # noqa: F401
     DeviceData, assign_label_ratios, build_network, dirichlet_label_split,
     interpolate_features, iterate_minibatches, make_device, reveal_labels,
 )
+from repro_torch.data.lm_stream import LMStream, LMStreamConfig  # noqa: F401

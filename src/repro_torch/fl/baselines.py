@@ -118,7 +118,9 @@ def _domain_gap(feat_params_stack, clients: StackedClients, src_ids,
     (they are frozen, so only (w, b) carry a gradient) and the SGD steps
     are batched over pairs.  ``draws``: (P, iters, 2, batch) rows of s
     ([..., 0, :]) and t ([..., 1, :]); without it they come from
-    ``seed``."""
+    ``seed``.  (w, b) take the dtype of the parameters and data (float32
+    on the paths; float64 holds the card against the CPU in
+    ``chip_smoke.py``)."""
     dev = clients.device
     si = torch.as_tensor(np.asarray(src_ids), dtype=torch.int64, device=dev)
     ti = torch.as_tensor(np.asarray(tgt_ids), dtype=torch.int64, device=dev)
@@ -143,9 +145,9 @@ def _domain_gap(feat_params_stack, clients: StackedClients, src_ids,
             .reshape(npairs, iters, 2 * batch, cnn.FC_HIDDEN)
     y = torch.cat([torch.zeros(batch, dtype=torch.int64),
                    torch.ones(batch, dtype=torch.int64)]).to(dev)
-    onehot = torch.nn.functional.one_hot(y, 2).float()
-    w = torch.zeros((npairs, cnn.FC_HIDDEN, 2), device=dev)
-    b = torch.zeros((npairs, 2), device=dev)
+    onehot = torch.nn.functional.one_hot(y, 2).to(f.dtype)
+    w = torch.zeros((npairs, cnn.FC_HIDDEN, 2), dtype=f.dtype, device=dev)
+    b = torch.zeros((npairs, 2), dtype=f.dtype, device=dev)
     for step in range(iters):
         fs = f[:, step]                                     # (P, 2B, 128)
         logits = torch.bmm(fs, w) + b[:, None, :]

@@ -6,23 +6,24 @@ the counterpart of ``repro.fl.transfer.combine_models(impl="pallas")``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.alpha_combine.ops import alpha_combine_tree
+from repro_torch.nn.param import tree_leaves
 
-Params = Dict[str, torch.Tensor]
+Params = Dict[str, Any]         # a (nested) dict of tensors
 
 
 def _on(params: Params, a) -> torch.Tensor:
-    dev = next(iter(params.values())).device
+    dev = tree_leaves(params)[0].device
     return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
 
 def combine_models(params_stack: Params, alpha) -> Params:
-    """params_stack: dict with leading device axis N; alpha: (N, N)
+    """params_stack: (nested) dict with leading device axis N; alpha: (N, N)
     column-stochastic over targets (alpha[s, t]).  Returns the same dict
     where entry t = sum_s alpha[s, t] * params[s]."""
     return alpha_combine_tree(params_stack, _on(params_stack, alpha))
@@ -35,10 +36,12 @@ def apply_transfer(params_stack: Params, alpha, psi) -> Params:
     psi = _on(params_stack, psi)
 
     def sel(own, mix):
+        if isinstance(own, dict):
+            return {k: sel(own[k], mix[k]) for k in own}
         m = psi.reshape((-1,) + (1,) * (own.dim() - 1)).to(own.dtype)
         return own * (1 - m) + mix * m
 
-    return {k: sel(params_stack[k], mixed[k]) for k in params_stack}
+    return sel(params_stack, mixed)
 
 
 def column_normalize(alpha: np.ndarray, psi: np.ndarray,

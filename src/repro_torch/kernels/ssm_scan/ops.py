@@ -22,8 +22,9 @@ version within the bars ``chip_smoke.py`` states, not bit for bit (see
 the source's header).  No kernel has a backward pass: with grad enabled,
 an input that requires grad raises (``_build.refuse_grad``).
 
-``gla_chunked_float64_sums`` is a reference for checks, on no path of the
-port: the plain version with its matrix products summed in float64.
+``gla_chunked_float64_sums`` names the plain version where a check
+holds the kernels to float64 sums: the plain version sums its products
+in float64 itself.
 """
 from __future__ import annotations
 
@@ -166,29 +167,6 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 gla_chunked.launches = 0
 
 
-class _Float64Sums(torch.overrides.TorchFunctionMode):
-    """fp32 matrix products (``@``, ``matmul``, ``einsum``) summed in
-    float64 from their fp32 operands and rounded once to fp32."""
-
-    PRODUCTS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
-                torch.einsum)
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func not in self.PRODUCTS or not any(
-                isinstance(a, torch.Tensor) and a.dtype == torch.float32
-                for a in args):
-            return func(*args, **kwargs)
-        up = [a.double() if isinstance(a, torch.Tensor)
-              and a.dtype == torch.float32 else a for a in args]
-        return func(*up, **kwargs).float()
-
-
-def gla_chunked_float64_sums(q, k, v, log_w, **kwargs):
-    """``gla_chunked_plain`` with the same fp32 factors, its products
-    (the scores, att·v, the readout, each chunk's state contribution)
-    summed in float64 and rounded where the plain version rounds them:
-    how far the kernels' sums, and the plain version's fp32 sums, lie
-    from exact sums.  For checks (``chip_smoke.py``, the tests)."""
-    with _Float64Sums():
-        return gla_chunked_plain(q, k, v, log_w, **kwargs)
+# the reference the kernels' fp32 sums are held to: the plain version,
+# whose products are summed in float64 from their fp32 factors
+gla_chunked_float64_sums = gla_chunked_plain

@@ -1,1 +1,2 @@
-"""Launchers of the port (the serving driver so far)."""
+"""Launchers of the port: training (``train``, its step in ``steps``)
+and serving (``serve``)."""

@@ -1,10 +1,14 @@
 """Decoder-only LM, dense family (llama3.2, repro-100m, gemma, granite,
-minitron): the port of ``repro.models.decoder.DecoderLM``'s serving path.
+minitron): the port of ``repro.models.decoder.DecoderLM``.
 
 Parameters keep JAX's layer-stacked layout (``layers/attn/wq`` is
 (L, D, H, hd)); JAX's ``lax.scan`` over layers is a Python loop over
-``take_layer(params["layers"], i)``, and ``remat`` has no meaning for
-inference.  MoE layers and stub frontends wait for their slices.
+``unstack(params["layers"])`` (``take_layer`` in decode).  ``loss``
+trains through the attention of ``cfg.attention_impl``: ``"dot"`` or
+``"chunked"`` (the kernel has no backward pass and refuses an input
+that requires grad); with ``cfg.remat`` each layer is recomputed in the
+backward pass, as JAX's ``jax.checkpoint`` over its scanned block.  MoE
+layers and stub frontends wait for their slices.
 """
 from __future__ import annotations
 
@@ -14,7 +18,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import LMBase, stack_specs, take_layer
+from repro_torch.models.common import (LMBase, chunked_softmax_xent,
+                                      maybe_checkpoint, stack_specs,
+                                      take_layer, unstack)
 from repro_torch.nn import attention as attn
 from repro_torch.nn import mlp as mlp_lib
 from repro_torch.nn import param as P
@@ -76,9 +82,9 @@ class DecoderLM(LMBase):
     def _backbone(self, params, x, positions, window=None):
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
-        for i in range(cfg.num_layers):
-            x = self._block(take_layer(params["layers"], i), x, positions,
-                            window, dtype)
+        for lp in unstack(params["layers"]):
+            x = maybe_checkpoint(cfg.remat, self._block, lp, x, positions,
+                                 window, dtype)
         return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
     def _embed_inputs(self, params, batch, dtype):
@@ -88,17 +94,31 @@ class DecoderLM(LMBase):
         return params["embedding"] if self.cfg.tie_embeddings \
             else params["unembed"]
 
-    # ------------------------------------------------------------- serving
-    @torch.no_grad()
-    def prefill(self, params, batch):
+    def _hidden(self, params, batch):
+        """The final-normed hidden (B, S, D) of ``batch["tokens"]``;
+        the sliding window applies only past ``cfg.sliding_window``."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch, getattr(torch, cfg.dtype))
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        h = self._backbone(params, x, positions,
-                           window=cfg.sliding_window
-                           if cfg.sliding_window and s > cfg.sliding_window
-                           else None)
+        return self._backbone(params, x, positions,
+                              window=cfg.sliding_window
+                              if cfg.sliding_window
+                              and s > cfg.sliding_window else None)
+
+    # ------------------------------------------------------------- training
+    def loss(self, params, batch):
+        h = self._hidden(params, batch)
+        npad = h.shape[1] - batch["labels"].shape[1]
+        ce = chunked_softmax_xent(h[:, npad:], self._table(params),
+                                  batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    # ------------------------------------------------------------- serving
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        h = self._hidden(params, batch)
         return unembed(h[:, -1:], self._table(params))
 
     def cache_specs(self, batch: int, max_len: int):

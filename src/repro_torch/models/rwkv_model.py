@@ -1,21 +1,25 @@
 """RWKV6 language model (attention-free; O(1)-state decode): the port of
-``repro.models.rwkv_model.RWKVModel``'s serving path.
+``repro.models.rwkv_model.RWKVModel``.
 
 Parameters keep JAX's layer-stacked layout; JAX's ``lax.scan`` over
-layers is a Python loop over ``take_layer``.  The recurrent state is
-JAX's 3-tuple ``(prev_att (L,B,D), wkv (L,B,H,hd,hd) fp32, prev_ffn
-(L,B,D))``; ``decode_step`` updates it in place and returns it.  The
-prefill's WKV runs the ``ssm_scan`` kernel once per layer.  As in JAX,
-the blocks take their default bfloat16 weight casts whatever
-``cfg.dtype`` (the activations') is.  ``loss`` comes with the training
-slice.
+layers is a Python loop over ``unstack`` (``take_layer`` in decode).
+The recurrent state is JAX's 3-tuple ``(prev_att (L,B,D), wkv
+(L,B,H,hd,hd) fp32, prev_ffn (L,B,D))``; ``decode_step`` updates it in
+place and returns it.  The prefill's WKV runs the ``ssm_scan`` kernel
+once per layer.  As in JAX, the blocks take their default bfloat16
+weight casts whatever ``cfg.dtype`` (the activations') is.  ``loss`` runs the WKV through
+``impl="plain"`` (``nn.linear_attn.gla_chunked``, differentiable), the
+path JAX's ``loss`` takes through its jnp scan; with ``cfg.remat`` each
+layer is recomputed in the backward pass.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import LMBase, stack_specs, take_layer
+from repro_torch.models.common import (LMBase, chunked_softmax_xent,
+                                      maybe_checkpoint, stack_specs,
+                                      take_layer, unstack)
 from repro_torch.nn import param as P
 from repro_torch.nn import rwkv
 from repro_torch.nn.layers import (embed, embedding_spec, rmsnorm,
@@ -49,21 +53,24 @@ class RWKVModel(LMBase):
         x = embed(tokens, params["embedding"], getattr(torch, cfg.dtype))
         return rmsnorm(x, params["ln_in"], cfg.norm_eps)
 
-    def _backbone(self, params, x):
-        """The layers from the zero state; returns the final-normed
-        hidden (JAX's also returns the new state, which ``prefill``
-        drops)."""
+    def _layer(self, lp, x, impl):
         cfg = self.cfg
         zero = x.new_zeros(x.shape[0], cfg.d_model)     # no previous token
-        for i in range(cfg.num_layers):
-            lp = take_layer(params["layers"], i)
-            a, _ = rwkv.time_mix(
-                lp["att"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
-                prev_x=zero, state=None)
-            x = x + a
-            f, _ = rwkv.channel_mix(
-                lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps), prev_x=zero)
-            x = x + f
+        a, _ = rwkv.time_mix(
+            lp["att"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
+            prev_x=zero, state=None, impl=impl)
+        x = x + a
+        f, _ = rwkv.channel_mix(
+            lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps), prev_x=zero)
+        return x + f
+
+    def _backbone(self, params, x, impl="kernel"):
+        """The layers from the zero state; returns the final-normed
+        hidden (JAX's also returns the new state, which ``prefill``
+        drops).  ``impl``: the WKV scan's (``rwkv.time_mix``)."""
+        cfg = self.cfg
+        for lp in unstack(params["layers"]):
+            x = maybe_checkpoint(cfg.remat, self._layer, lp, x, impl)
         return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
     def cache_specs(self, batch: int, max_len: int):
@@ -92,6 +99,14 @@ class RWKVModel(LMBase):
         return (torch.zeros(L, batch, cfg.d_model, dtype=dt, device=dev),
                 torch.zeros(L, batch, h, hd, hd, device=dev),
                 torch.zeros(L, batch, cfg.d_model, dtype=dt, device=dev))
+
+    # ------------------------------------------------------------ training
+    def loss(self, params, batch):
+        h = self._backbone(params, self._embed(params, batch["tokens"]),
+                           impl="plain")
+        ce = chunked_softmax_xent(h, params["unembed"], batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=h.device)}
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()

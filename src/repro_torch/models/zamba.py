@@ -1,5 +1,5 @@
 """Zamba2-style hybrid: Mamba2 backbone with *shared* attention blocks; the
-port of ``repro.models.zamba.ZambaModel``'s serving path.
+port of ``repro.models.zamba.ZambaModel``.
 
 81 mamba layers are run in groups of ``attn_every``; after each group one
 of ``num_shared_blocks`` shared transformer blocks (attn+MLP, weights reused
@@ -8,21 +8,27 @@ trick (arXiv:2411.15242).  As in JAX, the shared block takes the hidden
 state directly: no concatenation with the embedding and no per-use LoRA.
 
 Parameters keep JAX's layer-stacked layout; JAX's ``lax.scan`` over a
-group is a Python loop over ``take_layer``.  The cache is JAX's
+group is a Python loop over ``unstack``'s layers.  The cache is JAX's
 ``{"mamba": (conv (L,B,W-1,C), ssm (L,B,H,N,hd) fp32), "kv": {"k", "v"}
 (G,B,kv_len,KV,hd)}`` with one KV ring buffer per group (G applications
 of the shared blocks); ``decode_step`` updates it in place and returns it.
 The prefill runs the ``ssm_scan`` kernel once a mamba layer (``scan_impl=
 "kernel"``; ``"plain"`` runs ``nn.linear_attn.gla_chunked``) and the
-attention through ``cfg.attention_impl``.  ``loss`` comes with the
-training slice.
+attention through ``cfg.attention_impl``.  ``loss`` runs every scan
+through ``impl="plain"`` (``nn.linear_attn.gla_chunked``, differentiable)
+whatever ``scan_impl`` is, the path JAX's ``loss`` takes through its jnp
+scan; its shared attention follows ``cfg.attention_impl``.  With
+``cfg.remat`` each mamba layer is recomputed in the backward pass, as
+JAX checkpoints its scanned mamba body.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import LMBase, stack_specs, take_layer
+from repro_torch.models.common import (LMBase, chunked_softmax_xent,
+                                      maybe_checkpoint, stack_specs,
+                                      take_layer, unstack)
 from repro_torch.nn import attention as attn
 from repro_torch.nn import mamba
 from repro_torch.nn import mlp as mlp_lib
@@ -101,41 +107,59 @@ class ZambaModel(LMBase):
                         cfg.mlp_activation, dt)
         return x + y
 
-    def _backbone(self, params, x, positions, cache=None, pos=None):
+    def _mamba_layer(self, lp, x, impl):
+        cfg = self.cfg
+        m, _ = mamba.mamba_block(lp["mix"], rmsnorm(x, lp["ln"], cfg.norm_eps),
+                                 cfg, impl=impl)
+        return x + m
+
+    def _backbone(self, params, x, positions, cache=None, pos=None,
+                  impl=None):
         """The groups of mamba layers, each followed by its shared block;
         from the zero state (prefill: the new states are dropped, as JAX's
         ``prefill`` drops them) or one decode step on ``cache``, updated
-        in place."""
+        in place.  ``impl``: the scans' (default ``self.scan_impl``)."""
         cfg = self.cfg
+        impl = impl or self.scan_impl
         nsb = cfg.hybrid.num_shared_blocks
+        layers, shared = unstack(params["layers"]), unstack(params["shared"])
         for gi, (off, size) in enumerate(zip(self.group_offsets,
                                              self.group_sizes)):
             for i in range(off, off + size):
-                lp = take_layer(params["layers"], i)
-                hn = rmsnorm(x, lp["ln"], cfg.norm_eps)
+                lp = layers[i]
                 if cache is None:
-                    m, _ = mamba.mamba_block(lp["mix"], hn, cfg,
-                                             impl=self.scan_impl)
-                else:
-                    conv, ssm = cache["mamba"]
-                    m, (conv[i], ssm[i]) = mamba.mamba_decode(
-                        lp["mix"], hn, cfg, state=(conv[i], ssm[i]))
+                    x = maybe_checkpoint(cfg.remat, self._mamba_layer, lp,
+                                         x, impl)
+                    continue
+                conv, ssm = cache["mamba"]
+                m, (conv[i], ssm[i]) = mamba.mamba_decode(
+                    lp["mix"], rmsnorm(x, lp["ln"], cfg.norm_eps), cfg,
+                    state=(conv[i], ssm[i]))
                 x = x + m
-            sp = take_layer(params["shared"], gi % nsb)
+            sp = shared[gi % nsb]
             kvc = None if cache is None else take_layer(cache["kv"], gi)
             x = self._shared_attn(sp, x, positions, kv_cache=kvc, pos=pos)
         return x
 
+    def _hidden(self, params, tokens, impl=None):
+        cfg = self.cfg
+        x = embed(tokens, params["embedding"], getattr(torch, cfg.dtype))
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        return rmsnorm(self._backbone(params, x, positions, impl=impl),
+                       params["ln_f"], cfg.norm_eps)
+
+    # ------------------------------------------------------------ training
+    def loss(self, params, batch):
+        h = self._hidden(params, batch["tokens"], impl="plain")
+        ce = chunked_softmax_xent(h, params["unembed"], batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=h.device)}
+
     # ------------------------------------------------------------- serving
     @torch.no_grad()
     def prefill(self, params, batch):
-        cfg = self.cfg
-        x = embed(batch["tokens"], params["embedding"],
-                  getattr(torch, cfg.dtype))
-        b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
-        h = rmsnorm(self._backbone(params, x, positions), params["ln_f"],
-                    cfg.norm_eps)
+        h = self._hidden(params, batch["tokens"])
         return unembed(h[:, -1:], params["unembed"])
 
     def cache_specs(self, batch: int, max_len: int):

@@ -32,7 +32,13 @@ chunk's first row).  Every exponent is ≤ 0, so nothing overflows; where
 JAX's form stays in range the two agree to rounding.  ``lc`` is a cumsum
 along a dimension that is not the innermost, which PyTorch takes in
 order on the GPU too, as the kernel does; the diagonal blocks are summed
-in fp64 and rounded once, as in the kernel.
+in fp64 and rounded once, as in the kernel.  Every other product (the
+scores, att·v, the readout of the state, each chunk's state
+contribution) is summed in float64 from its fp32 factors and rounded
+once to fp32 (``_sum64``): the function is the same, its sums closer to
+exact than fp32 sums in cuBLAS's order, which lay up to 0.87 of the
+kernels' fp32 bar from them at rwkv6's scale, the kernels' own up to
+0.69 (``tools/ssm_scan_fp32_bar.py``).
 """
 from __future__ import annotations
 
@@ -52,6 +58,12 @@ def _chunk(x: torch.Tensor, i: int, chunk: int) -> torch.Tensor:
     log_w = 0 decays nothing)."""
     part = x[:, i * chunk:(i + 1) * chunk].float().transpose(1, 2)
     return F.pad(part, (0, 0, 0, chunk - part.shape[2]))
+
+
+def _sum64(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of fp32 factors, summed in float64 and
+    rounded once to fp32."""
+    return torch.einsum(eq, a.double(), b.double()).float()
 
 
 def gla_chunked(q, k, v, log_w, *, chunk: int, variant: str = "mamba",
@@ -96,7 +108,7 @@ def gla_chunked(q, k, v, log_w, *, chunk: int, variant: str = "mamba",
         g = torch.exp((r - e.transpose(2, 3)).masked_fill(
             ~earlier[:, :, None], float("-inf")))         # (B,H,NSi,NSj,Dk)
         qg = q_hat[:, :, :, None] * g[:, :, :, :, None]   # (B,H,i,j,t,Dk)
-        att = torch.einsum("bhijtd,bhjsd->bhitjs", qg, k_hat)
+        att = _sum64("bhijtd,bhjsd->bhitjs", qg, k_hat)
         del qg
         # the diagonal blocks, pair by pair after the mask, summed in
         # fp64 and rounded once (torch.sum's order is its own; the
@@ -112,10 +124,11 @@ def gla_chunked(q, k, v, log_w, *, chunk: int, variant: str = "mamba",
         torch.diagonal(att, dim1=2, dim2=4).copy_(
             diag.permute(0, 1, 3, 4, 2).float())
         att = att.reshape(b, h, chunk, chunk)
-        y = att @ vc + (qc * torch.exp(q_lc)) @ s         # (B,H,C,Dv)
+        y = _sum64("bhts,bhsv->bhtv", att, vc) \
+            + _sum64("bhtd,bhdv->bhtv", qc * torch.exp(q_lc), s)
         lt = lc[:, :, -1:]                                # (B,H,1,Dk)
         s = s * torch.exp(lt).transpose(2, 3) \
-            + (kc * torch.exp(lt - lc)).transpose(2, 3) @ vc
+            + _sum64("bhtd,bhtv->bhdv", kc * torch.exp(lt - lc), vc)
         ys.append(y)
     if not ys:
         return v.new_empty(b, 0, h, dv), s

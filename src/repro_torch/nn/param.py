@@ -71,27 +71,47 @@ def count_params(tree) -> int:
     return math.prod(tree.shape)
 
 
-def flatten_to_vector(tree: Dict[str, torch.Tensor], *,
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (``None`` is a leaf), in
+    JAX's tree order: dict keys sorted, depth first."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    """The leaves of nested dicts in JAX's tree order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def flatten_to_vector(tree: Dict[str, Any], *,
                       lead: int = 0) -> torch.Tensor:
-    """Concatenate every leaf in JAX tree order into one float32 vector;
-    with ``lead=1`` the leaves carry a leading stack axis and the result
-    is (S, P)."""
-    parts = [tree[k].reshape(*tree[k].shape[:lead], -1).float()
-             for k in sorted(tree)]
+    """Concatenate every leaf of a (nested) dict in JAX tree order into
+    one float32 vector; with ``lead=1`` the leaves carry a leading stack
+    axis and the result is (S, P)."""
+    parts = [t.reshape(*t.shape[:lead], -1).float() for t in tree_leaves(tree)]
     return torch.cat(parts, dim=lead)
 
 
-def unflatten_from_vector(vec: torch.Tensor, like: Dict[str, torch.Tensor],
-                          *, lead: int = 0) -> Dict[str, torch.Tensor]:
-    """Inverse of ``flatten_to_vector``: shapes and dtypes from ``like``
-    (leaf shapes taken after its first ``lead`` axes); ``vec``'s own
-    leading axes are kept."""
-    out, off = {}, 0
+def unflatten_from_vector(vec: torch.Tensor, like: Dict[str, Any],
+                          *, lead: int = 0) -> Dict[str, Any]:
+    """Inverse of ``flatten_to_vector``: the tree, shapes and dtypes from
+    ``like`` (leaf shapes taken after its first ``lead`` axes); ``vec``'s
+    own leading axes are kept."""
     head = vec.shape[:-1]
-    for k in sorted(like):
-        shape = like[k].shape[lead:]
+    off = 0
+
+    def rebuild(t):
+        nonlocal off
+        if isinstance(t, dict):
+            return {k: rebuild(t[k]) for k in sorted(t)}
+        shape = t.shape[lead:]
         n = math.prod(shape)
-        out[k] = vec[..., off:off + n].reshape(*head, *shape) \
-            .to(like[k].dtype)
+        out = vec[..., off:off + n].reshape(*head, *shape).to(t.dtype)
         off += n
-    return out
+        return out
+
+    return rebuild(like)
