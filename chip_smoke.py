@@ -26,6 +26,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
              the serve paths' two prefill shapes, (4, 2048) causal and
              (1, 9216) with a window of 8192, at llama3.2-1b's D = 64,
              zamba2-7b's 112 (32/32 heads) and gemma-7b's 256 (16/16),
+             and at D = 128 with the MoE and vlm decoders' GQA ratios
+             (grok-1 48/8, llama4-scout 40/8, internvl2-2b 16/8; bf16),
              in bf16 (within one bf16 ulp: rtol 2^-7, atol 1e-5; the
              tensor-core kernel) and in fp32 (the SIMT kernel), and on
              the JAX package's test grid in fp32 (atol 3e-5, rtol
@@ -152,7 +154,28 @@ Phases, each of which raises on failure (the script then exits nonzero):
              ``flash_attention`` launches a prefill, logits against
              ``"dot"``, layer 0's q, k, v, generate, the invariant.
              Freed.
-7. train   — (run after 5d, before 6) repro-100m at full width and
+5e. serve-grok, serve-llama4 — the MoE decoders at full width, depth
+             cut to fit the card with fp32 weights (grok-1-314b 2 of 64
+             layers, llama4-scout-17b-a16e 4 of 48): PREFILLS counted
+             (one ``flash_attention`` launch a layer, D = 128 at GQA 6
+             and 5); the logits against ``"dot"`` with the expert ids
+             pinned to the kernel route's (the dot route's own routing
+             flips near-ties: the flips and the share of choices the
+             capacity drops printed); layer 0's q, k, v; generate; the
+             invariant in float32 compute on JAX's dropless config
+             (capacity factor = experts).  Each freed.
+5f. serve-vlm — internvl2-2b at full width and depth (24 layers, 16/8
+             heads of 128): prompts of 256 seeded frontend rows + text,
+             PREFILLS long, 24 launches a prefill, against ``"dot"``;
+             layer 0's q, k, v; generate on text; the invariant.  Freed.
+5g. serve-encdec — seamless-m4t-large-v2 at full width and depth (24 +
+             24 layers): prefill of (4, 2048) tokens over (4, 1024, 1024)
+             seeded frames, counted (no kernel: JAX's encoder-decoder
+             runs its attention plainly); the cross cache from the
+             encoder's memory, ``decode_step`` over a (4, 64) prompt and
+             32 greedy tokens (ms a step); decode against prefill in
+             float32 compute.  Freed.
+7. train   — (run after 5g, before 6) repro-100m at full width and
              depth (12 layers, d_model 768, ~129 M parameters) through
              ``python -m repro_torch.launch.train``'s ``main``: 30 steps
              at (8, 512) on ``LMStream``, counted (no kernel runs: JAX
@@ -162,8 +185,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
              step apart, checkpoint writes left out), peak memory, a
              profiler window over three more steps; a second run to step
              25 restores step 20's checkpoint (bit for bit) and trains
-             on.  Three fp32 train steps of repro-100m, rwkv6-1.6b and
-             zamba2-7b at ``reduced()`` on the card and on the CPU port
+             on.  Three fp32 train steps of repro-100m, rwkv6-1.6b,
+             zamba2-7b and grok-1-314b (MoE: ce + the load-balance aux)
+             at ``reduced()`` on the card and on the CPU port
              (loss within 1e-5 relative, each leaf's change within 1e-3
              of its norm).  ``attention_impl="kernel"`` under grad
              raises; under ``no_grad`` its loss runs ``flash_attention``
@@ -247,6 +271,20 @@ FLASH_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7),
 # PREFILLS, the second past their 8192-token window
 ZAMBA_ARCH, GEMMA_ARCH = "zamba2-7b", "gemma-7b"
 HEAD_DIM_PATHS = [(ZAMBA_ARCH, 32, 112), (GEMMA_ARCH, 16, 256)]
+# the MoE decoders at full width, their depth cut to fit one card with
+# fp32 weights (JAX's param_dtype): (arch, layers kept).  grok-1: 2 of 64
+# layers (19.7 GB each: 8 experts x 3 x 6144 x 32768) + 6.4 GB of
+# embeddings; llama4-scout: 4 of 48 (8.3 GB each) + 8.3 GB
+MOE_PATHS = [("grok-1-314b", 2), ("llama4-scout-17b-a16e", 4)]
+# the stub-frontend decoder (its prompts: 256 frontend rows, then text)
+# and the encoder-decoder, both at full width and depth
+VLM_ARCH, ENCDEC_ARCH = "internvl2-2b", "seamless-m4t-large-v2"
+# (B, S) of the encoder-decoder's prefill, over (B, 1024, 1024) frames
+ENCDEC_PREFILL = (4, 2048)
+# the decoders whose attention runs flash_attention at D = 128 with GQA
+# ratios 6, 5 and 2: (arch, heads, kv heads); each prefills PREFILLS
+GQA_PATHS = [(MOE_PATHS[0][0], 48, 8), (MOE_PATHS[1][0], 40, 8),
+             (VLM_ARCH, 16, 8)]
 # phase 7, training: repro-100m (JAX's train.py default) at full width
 # and depth through launch.train: (steps, batch, seq, log every,
 # checkpoint every, the restored run's last step); the loss must fall by
@@ -269,11 +307,16 @@ TRAIN_MIN_DROP = 0.5
 # and 5.6e-5 of a leaf (repro-100m 1.4e-6), and Adam's normalisation
 # carries that into their changes (rwkv6 1.1e-3 on att/wg with no flip;
 # zamba2-7b 1.3e-3 on another batch, the card tests')
-TRAIN_CARD_CPU = ["repro-100m", "rwkv6-1.6b", "zamba2-7b"]
+# grok-1-314b (MoE, top-2 of 4 experts at reduced()) keeps no bf16
+# rounding point in an fp32 config (its experts cast their weights to the
+# compute dtype), so it has repro-100m's bar; its router is fp32 in both
+# (a token whose top-2 flipped between card and CPU would move its
+# experts' changes far past it)
+TRAIN_CARD_CPU = ["repro-100m", "rwkv6-1.6b", "zamba2-7b", "grok-1-314b"]
 TRAIN_LR = 3e-4
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_DELTA_TOL = {"repro-100m": 1e-3, "rwkv6-1.6b": 5e-3,
-                   "zamba2-7b": 5e-3}
+                   "zamba2-7b": 5e-3, "grok-1-314b": 1e-3}
 TRAIN_FLIP_SHARE = 1e-4
 # the loss through the flash kernel (no_grad) against the dot route,
 # bf16 compute at full width
@@ -769,13 +812,47 @@ def check_flash(fa, q, k, v, causal, window, what):
     return err, moved, rms
 
 
+def flash_device_us(fa, run, calls=5, windows=3):
+    """Device microseconds a call of the flash kernel, from a profiler
+    window over ``calls`` calls (the wrapper must count ``calls``
+    launches, and the profiler see no other flash kernel and none more
+    often).  A window that lost records (the profiler does, now and then)
+    is taken again, up to ``windows`` times; then (None, records seen):
+    the CUDA-event ms beside it stand."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    seen = 0
+    for _ in range(windows):
+        before = fa.flash_attention.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        counted = fa.flash_attention.launches - before
+        recs = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "flash_fwd" in e.key]
+        seen = sum(e.count for e in recs)
+        if counted != calls or len(recs) > 1 or seen > calls:
+            raise AssertionError(f"flash_attention: {calls} calls counted "
+                                 f"{counted} launches in the wrapper and "
+                                 f"{[(e.key, e.count) for e in recs]} in "
+                                 f"the profiler")
+        if seen == calls:
+            return recs[0].self_device_time_total / calls, seen
+    return None, seen
+
+
 def phase_flash(fa):
     """``flash_attention`` against its plain version at the serve paths'
     prefill shapes (bf16 and fp32, GQA K/V as ``attend`` passes them):
     llama3.2-1b's D = 64, zamba2-7b's shared attention at D = 112 and
     gemma-7b's D = 256 (the bf16 rows, and at D = 112 and 256 the fp32
-    rows too, timed beside ``scaled_dot_product_attention``), and on the
-    JAX package's test grid (``tests/test_kernels.py``, fp32)."""
+    rows too, timed beside ``scaled_dot_product_attention``), D = 128 at
+    grok-1's, llama4-scout's and internvl2-2b's GQA ratios (bf16, timed),
+    and on the JAX package's test grid (``tests/test_kernels.py``,
+    fp32)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -791,9 +868,14 @@ def phase_flash(fa):
         (1, 96, 96, 1, 1, 128, False, None, f32),
     ] + [(b, s, s, h, h, d, True, w, dt)
          for _, h, d in HEAD_DIM_PATHS for dt in (bf16, f32)
-         for (b, s), w in zip(PREFILLS, (None, 8192))]
-    paths = {d: f"{arch} prefills {PREFILLS}"
-             for arch, _, d in [(LM_ARCH, 32, 64)] + HEAD_DIM_PATHS}
+         for (b, s), w in zip(PREFILLS, (None, 8192))] \
+        + [(b, s, s, h, kv, 128, True, w, bf16)
+           for _, h, kv in GQA_PATHS
+           for (b, s), w in zip(PREFILLS, (None, 8192))]
+    paths = {(h, kv, d): f"{arch} prefills {PREFILLS}"
+             for arch, h, kv, d in [(LM_ARCH, 32, 8, 64)]
+             + [(a, h, h, d) for a, h, d in HEAD_DIM_PATHS]
+             + [(a, h, kv, 128) for a, h, kv in GQA_PATHS]}
     rows = []
     for b, sq, sk, h, kv, d, causal, window, dt in cases:
         q = torch.randn(b, sq, h, d, device=dev, generator=gen).to(dt)
@@ -810,7 +892,7 @@ def phase_flash(fa):
                    kernel=route, max_abs_err=err, out_rms=rms,
                    tol=FLASH_TOL[dt], beyond_bar_without_window=moved)
         if sq == sk and sq in (2048, 9216):
-            row["path"] = paths[d]
+            row["path"] = paths[(h, kv, d)]
         note = f"max abs err {err:.3g} (output RMS {rms:.3g}, bar " \
                f"{FLASH_TOL[dt]})" + ("" if moved is None else
                                       f"; without the window {moved} "
@@ -850,9 +932,13 @@ def phase_flash(fa):
                 library_ms=cuda_ms(sdpa, 10),
                 bound_ms=b_ms, bound_by=b_by)
             row["tflops"] = 4 * d * pairs / row["ms"] / 1e9
+            row["device_us"], row["device_records"] = flash_device_us(
+                fa, lambda: fa.flash_attention(q, k, v, causal=causal,
+                                               window=window))
             log(f"[kernels] flash_attention {shape} {dtype} window="
                 f"{window} on the {route}: {row['ms']:.4f} ms kernel "
-                f"({row['tflops']:.1f} TFLOP/s of 4 D per live pair), "
+                f"({row['tflops']:.1f} TFLOP/s of 4 D per live pair; "
+                f"device {row['device_us']} us a call), "
                 f"{row['plain_ms']:.4f} ms plain, sdpa "
                 f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}); {note}; sdpa against the plain version: max "
@@ -893,15 +979,16 @@ def _logit_gap(a, b, what):
     return diff, gap
 
 
-def layer0_qkv(model, params, tokens):
+def layer0_qkv(model, params, batch):
     """Layer 0's q, k, v as ``DecoderLM.prefill`` hands them to the
-    attention impl: the prompt's embedding, rmsnorm, projection, rope."""
+    attention impl: the prompt's embedding (after a frontend's
+    ``embeds``), rmsnorm, projection, rope."""
     from repro_torch.models.common import take_layer
     from repro_torch.nn.attention import project_qkv
     from repro_torch.nn.layers import rmsnorm
     cfg = model.cfg
     dtype = getattr(torch, cfg.dtype)
-    x = model._embed_inputs(params, {"tokens": tokens}, dtype)
+    x = model._embed_inputs(params, batch, dtype)
     b, s, _ = x.shape
     p = take_layer(params["layers"], 0)
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -969,7 +1056,7 @@ def phase_serve(counted, report):
         del ref
         window = cfg.sliding_window if s > cfg.sliding_window else None
         l0_err, l0_moved, l0_rms = check_flash(
-            fa_ops, *layer0_qkv(model, params, p), True, window,
+            fa_ops, *layer0_qkv(model, params, {"tokens": p}), True, window,
             f"layer 0 of prefill {(b, s)}")
         out["prefill"].append(dict(
             shape=[b, s], window=window, first_s=first_s,
@@ -1473,20 +1560,41 @@ def phase_serve_rwkv(counted, report):
     return launches, model, params
 
 
-def _serve_prefills(tag, model, ref_model, params, counted, per_prefill):
+def moe_routing_stats(moe, ids, other):
+    """Expert ids (L, B, S, k) of one route against another's: the
+    assignments that differ (each token's k choices compared as a set)
+    and the share of ``ids``'s choices the capacity drops."""
+    from repro_torch.nn import moe as moe_lib
+    flips = int((ids.sort(-1).values != other.sort(-1).values).sum())
+    cap = moe_lib.capacity(ids.shape[2], moe)
+    kept = torch.stack([moe_lib.dispatch_slots(x, cap, moe.num_experts)[1]
+                        for x in ids])
+    return flips, ids.numel(), float(1 - kept.float().mean())
+
+
+def _serve_prefills(tag, model, ref_model, params, counted, per_prefill,
+                    make_batch=None, pin=False):
     """The big models' prefills of PREFILLS through the kernels, counted
     (``per_prefill``: each kernel's launches a prefill, checked over the
     two and again on a later prefill of each), deterministic, and
     against ``ref_model`` (the plain routes) on the same weights: within
-    LM_TOL, argmax equal.  Returns (launches, prompts, rows)."""
+    LM_TOL, argmax equal.  ``make_batch(b, s, gen)`` makes a prompt of
+    total length s (default: s random tokens).  With ``pin`` (MoE) the
+    reference replays the kernel route's expert ids: a near-tie routes
+    differently on the other route's roundings, and a flipped token's
+    output differs by O(1); the flips (against the reference's own
+    routing) and the share the capacity drops are reported.  Returns
+    (launches, batches, rows)."""
     dev = torch.device("cuda")
     cfg = model.cfg
     gen = torch.Generator(device=dev).manual_seed(1)
-    prompts = [torch.randint(0, cfg.vocab_size, shape, device=dev,
-                             generator=gen) for shape in PREFILLS]
+    if make_batch is None:
+        def make_batch(b, s, g):
+            return {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                            device=dev, generator=g)}
+    batches = [make_batch(b, s, gen) for b, s in PREFILLS]
     zero_counts(counted)
-    first = [_timed(lambda p=p: model.prefill(params, {"tokens": p}))
-             for p in prompts]
+    first = [_timed(lambda x=x: model.prefill(params, x)) for x in batches]
     launches = read_counts(counted)
     log(f"[{tag}] launches in the serve path: {launches}")
     for name, n in per_prefill.items():
@@ -1494,13 +1602,12 @@ def _serve_prefills(tag, model, ref_model, params, counted, per_prefill):
             raise AssertionError(f"{tag}: {name} launched {launches[name]} "
                                  f"times in two prefills, not {2 * n}")
     rows = []
-    for (b, s), p, (logits, first_s) in zip(PREFILLS, prompts, first):
+    for (b, s), x, (logits, first_s) in zip(PREFILLS, batches, first):
         if logits.shape != (b, 1, cfg.vocab_size):
             raise AssertionError(f"prefill logits {tuple(logits.shape)}")
         before = read_counts(counted)
         torch.cuda.reset_peak_memory_stats()
-        again, steady_s = _timed(lambda: model.prefill(params,
-                                                       {"tokens": p}))
+        again, steady_s = _timed(lambda: model.prefill(params, x))
         peak = torch.cuda.max_memory_allocated()
         after = read_counts(counted)
         again_n = {k: after[k] - before[k] for k in per_prefill}
@@ -1510,23 +1617,35 @@ def _serve_prefills(tag, model, ref_model, params, counted, per_prefill):
         if not torch.equal(again, logits):
             raise AssertionError(f"{tag}: prefill {(b, s)} through the "
                                  f"kernels is not deterministic")
-        ref, ref_s = _timed(lambda: ref_model.prefill(params,
-                                                      {"tokens": p}))
+        row, ref_x, note = {}, x, ""
+        if pin:
+            ids = model.routing(params, x)
+            flips, n, drop = moe_routing_stats(
+                cfg.moe, ids, ref_model.routing(params, x))
+            row.update(routing_flips=flips, routing_assignments=n,
+                       dropped_share=drop)
+            ref_x = dict(x, expert_ids=ids)
+            note = (f"; the plain routes' own routing differs in {flips} "
+                    f"of {n} expert assignments (pinned to the kernel "
+                    f"route's for the check); the capacity drops "
+                    f"{drop:.4%} of the choices")
+        ref, ref_s = _timed(lambda: ref_model.prefill(params, ref_x))
         diff, gap = _logit_gap(logits, ref, f"{tag} prefill {(b, s)} "
                                f"kernels vs plain routes")
-        del ref
-        rows.append(dict(shape=[b, s], first_s=first_s, steady_s=steady_s,
-                         tok_per_s=b * s / steady_s, peak_gb=peak / 1e9,
-                         plain_routes_s=ref_s, max_abs_dlogit_vs_plain=diff,
-                         min_top2_gap=gap))
+        del ref, ref_x
+        row = dict(shape=[b, s], first_s=first_s, steady_s=steady_s,
+                   tok_per_s=b * s / steady_s, peak_gb=peak / 1e9,
+                   plain_routes_s=ref_s, max_abs_dlogit_vs_plain=diff,
+                   min_top2_gap=gap, **row)
+        rows.append(row)
         log(f"[{tag}] prefill {(b, s)} through the kernels: first call "
             f"{first_s:.4f} s, again {steady_s:.4f} s "
             f"({b * s / steady_s:,.0f} tokens/s), peak memory "
             f"{peak / 1e9:.2f} GB; through the plain routes {ref_s:.4f} s; "
             f"max |dlogit| {diff:.4g}, argmax equal (smallest top-2 gap "
-            f"{gap:.4g})")
+            f"{gap:.4g}){note}")
         torch.cuda.empty_cache()
-    return launches, prompts, rows
+    return launches, batches, rows
 
 
 def _decode_pass(model, params, prompt):
@@ -1541,14 +1660,15 @@ def _decode_pass(model, params, prompt):
     return dec
 
 
-def _serve_generate(tag, model, params):
+def _serve_generate(tag, model, params, f32_over=None):
     """``serve.generate``: a (4, 64) prompt, 32 greedy tokens, timed.
     Then JAX's serving invariant, decode_step token by token from an
     empty cache reaching prefill's last-token logits, held
     (``_decode_gap``) with the same weights in float32 compute, where it
-    tests the caches and the two routes' algorithms; in bfloat16 the two
-    routes round differently at every one of the model's blocks, and
-    that gap is reported beside it."""
+    tests the caches and the two routes' algorithms (``f32_over``: more
+    config fields of that check, e.g. an MoE's dropless capacity); in
+    bfloat16 the two routes round differently at every one of the
+    model's blocks, and that gap is reported beside it."""
     from repro_torch.launch.serve import generate
     dev = torch.device("cuda")
     cfg = model.cfg
@@ -1571,7 +1691,8 @@ def _serve_generate(tag, model, params):
     pre = model.prefill(params, {"tokens": prompt})
     bf16_diff = float((dec.float() - pre.float()).abs().max())
     bf16_same = int((dec.argmax(-1) == pre.argmax(-1)).sum())
-    f32 = type(model)(dataclasses.replace(cfg, dtype="float32"))
+    f32 = type(model)(dataclasses.replace(cfg, dtype="float32",
+                                          **(f32_over or {})))
     diff, gap, held = _decode_gap(
         _decode_pass(f32, params, prompt),
         f32.prefill(params, {"tokens": prompt}),
@@ -1679,8 +1800,9 @@ def phase_serve_zamba(counted, report):
                    "ssm_scan": per_call * cfg.num_layers}
     plain = ZambaModel(dataclasses.replace(cfg, attention_impl="dot"),
                        scan_impl="plain")
-    launches, prompts, rows = _serve_prefills(tag, model, plain, params,
+    launches, batches, rows = _serve_prefills(tag, model, plain, params,
                                               counted, per_prefill)
+    prompts = [x["tokens"] for x in batches]
     out = dict(params=n_params, init_s=init_s, launches=launches,
                per_prefill=per_prefill, prefill=rows, ssm_rows=[])
     nheads = dims(cfg)[1]
@@ -1774,11 +1896,11 @@ def phase_serve_gemma(counted, report):
         f"{cfg.tie_embeddings}; compute dtype {cfg.dtype}")
     per_prefill = {"flash_attention": cfg.num_layers}
     dot = build_model(dataclasses.replace(cfg, attention_impl="dot"))
-    launches, prompts, rows = _serve_prefills(tag, model, dot, params,
+    launches, batches, rows = _serve_prefills(tag, model, dot, params,
                                               counted, per_prefill)
-    for (b, s), p, row in zip(PREFILLS, prompts, rows):
+    for (b, s), x, row in zip(PREFILLS, batches, rows):
         row["layer0_flash"] = _flash_layer_check(
-            tag, fa_ops, layer0_qkv(model, params, p), s,
+            tag, fa_ops, layer0_qkv(model, params, x), s,
             cfg.sliding_window, f"layer 0 of prefill {(b, s)}")
         torch.cuda.empty_cache()
     out = dict(params=n_params, init_s=init_s, launches=launches,
@@ -1786,6 +1908,249 @@ def phase_serve_gemma(counted, report):
                generate=_serve_generate(tag, model, params))
     report["serve_gemma"] = out
     del params, model, dot
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_moe(counted, report):
+    """The MoE decoders at full width, depth cut (MOE_PATHS), through the
+    port's serving entry points: ``DecoderLM.prefill`` counted (one
+    ``flash_attention`` launch a layer, D = 128 at GQA 6 and 5), against
+    the same weights through ``"dot"`` with the routing pinned to the
+    kernel route's (the flips and the capacity's drops reported), layer
+    0's q, k, v through the kernel against its plain version,
+    ``serve.generate``, and decode against prefill in float32 compute on
+    JAX's dropless config (``capacity_factor = num_experts``: at 1.25 a
+    prefill may drop choices that decode, one token a group, keeps).
+    Each model is freed before the next loads."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.api import build_model
+    from repro_torch.nn.param import count_params
+
+    dev = torch.device("cuda")
+    out = {}
+    for arch, layers in MOE_PATHS:
+        tag = f"serve-{arch.split('-')[0]}"
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers,
+                                  attention_impl="kernel")
+        model = build_model(cfg)
+        params, init_s = _timed(lambda: model.init(
+            torch.Generator(device=dev).manual_seed(0), device=dev))
+        n_params = count_params(params)
+        moe = cfg.moe
+        log(f"[{tag}] {cfg.name}: {n_params:,} parameters (float32, drawn "
+            f"on the card from seed 0) in {init_s:.3f} s; {layers} of "
+            f"{full.num_layers} layers (the depth cut; JAX's init takes a "
+            f"stacked leaf's fan-in over the layers kept, so each draw is "
+            f"{(full.num_layers / layers) ** 0.5:.2f}x the full model's), "
+            f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+            f"heads of {cfg.resolved_head_dim()}, {moe.num_experts} "
+            f"experts top-{moe.top_k} of d_ff {cfg.d_ff} "
+            f"({cfg.mlp_activation}), capacity factor "
+            f"{moe.capacity_factor}; compute dtype {cfg.dtype}")
+        per_prefill = {"flash_attention": cfg.num_layers}
+        dot = build_model(dataclasses.replace(cfg, attention_impl="dot"))
+        launches, batches, rows = _serve_prefills(
+            tag, model, dot, params, counted, per_prefill, pin=True)
+        for (b, s), x, row in zip(PREFILLS, batches, rows):
+            row["layer0_flash"] = _flash_layer_check(
+                tag, fa_ops, layer0_qkv(model, params, x), s,
+                cfg.sliding_window, f"layer 0 of prefill {(b, s)}")
+            torch.cuda.empty_cache()
+        del batches
+        dropless = dict(moe=dataclasses.replace(
+            moe, capacity_factor=float(moe.num_experts)))
+        out[arch] = dict(layers=layers, params=n_params, init_s=init_s,
+                         launches=launches, per_prefill=per_prefill,
+                         prefill=rows,
+                         generate=_serve_generate(tag, model, params,
+                                                  f32_over=dropless))
+        del params, model, dot
+        torch.cuda.empty_cache()
+    report["serve_moe"] = out
+    return out
+
+
+def phase_serve_vlm(counted, report):
+    """internvl2-2b at full width and depth (24 layers, 16/8 heads of
+    128) through the port's serving entry points: ``DecoderLM.prefill``
+    of 256 seeded frontend rows (the stub vision encoder's output)
+    followed by text, PREFILLS the prompts' whole length, counted (24
+    ``flash_attention`` launches a prefill, GQA 2), against the same
+    model through ``"dot"``; layer 0's q, k, v through the kernel against
+    its plain version; ``serve.generate`` on text, and decode against
+    prefill.  The model is freed afterwards."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.api import build_model
+    from repro_torch.nn.param import count_params
+
+    tag = "serve-vlm"
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(VLM_ARCH), attention_impl="kernel")
+    model = build_model(cfg)
+    params, init_s = _timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = count_params(params)
+    rows_in = cfg.frontend.num_embeds
+    log(f"[{tag}] {cfg.name}: {n_params:,} parameters (float32, drawn on "
+        f"the card from seed 0) in {init_s:.3f} s; {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+        f"of {cfg.resolved_head_dim()}; {rows_in} {cfg.frontend.kind} "
+        f"frontend rows of {cfg.frontend.embed_dim} before the text; "
+        f"compute dtype {cfg.dtype}")
+
+    def make_batch(b, s, g):
+        return {"tokens": torch.randint(0, cfg.vocab_size, (b, s - rows_in),
+                                        device=dev, generator=g),
+                "embeds": torch.randn(b, rows_in, cfg.frontend.embed_dim,
+                                      device=dev, generator=g)}
+    per_prefill = {"flash_attention": cfg.num_layers}
+    dot = build_model(dataclasses.replace(cfg, attention_impl="dot"))
+    launches, batches, rows = _serve_prefills(
+        tag, model, dot, params, counted, per_prefill, make_batch=make_batch)
+    for (b, s), x, row in zip(PREFILLS, batches, rows):
+        row["layer0_flash"] = _flash_layer_check(
+            tag, fa_ops, layer0_qkv(model, params, x), s,
+            cfg.sliding_window, f"layer 0 of prefill {(b, s)}")
+        torch.cuda.empty_cache()
+    out = dict(params=n_params, init_s=init_s, launches=launches,
+               per_prefill=per_prefill, frontend_rows=rows_in, prefill=rows,
+               generate=_serve_generate(tag, model, params))
+    report["serve_vlm"] = out
+    del params, model, dot, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _encdec_decode(model, params, src, prompt, n_gen):
+    """The encoder-decoder's serving loop: the cross cache from
+    ``_encode``'s memory of ``src``, then ``decode_step`` over ``prompt``
+    token by token and ``n_gen`` greedy tokens.  Returns (the logits at
+    the prompt's last token, the generated tokens, the decode steps' host
+    seconds)."""
+    b, s = prompt.shape
+    dev = prompt.device
+    with torch.no_grad():
+        cross = model.build_cross_cache(params, model._encode(params, src))
+    cache = dict(model.init_cache(b, s + n_gen, device=dev), cross=cross)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(s):
+        logits, cache = model.decode_step(params, cache, {
+            "token": prompt[:, i:i + 1], "pos": torch.full((b,), i,
+                                                           device=dev)})
+    last = logits
+    toks = []
+    for j in range(n_gen):
+        nxt = logits[:, -1].argmax(-1)
+        toks.append(nxt)
+        logits, cache = model.decode_step(params, cache, {
+            "token": nxt[:, None], "pos": torch.full((b,), s + j,
+                                                     device=dev)})
+    torch.cuda.synchronize()
+    return last, torch.stack(toks, 1) if toks else None, \
+        time.perf_counter() - t0
+
+
+def phase_serve_encdec(counted, report):
+    """seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+    decoder layers, d_model 1024, 16 heads of 64) through the port's
+    entry points, as JAX's tests drive it: ``prefill`` of ENCDEC_PREFILL
+    tokens over (B, 1024, 1024) seeded stub frames, counted (no kernel
+    runs: JAX's encoder-decoder passes no attention impl, so every
+    attention takes the plain route); ``build_cross_cache`` from
+    ``_encode``'s memory, then ``decode_step`` over a (4, 64) prompt and
+    32 greedy tokens (ms a decode step), and decode against prefill in
+    float32 compute (the bf16 gap beside it).  The model is freed
+    afterwards."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.encdec import EncDecModel
+    from repro_torch.nn.param import count_params
+
+    tag = "serve-encdec"
+    dev = torch.device("cuda")
+    cfg = get_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    params, init_s = _timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = count_params(params)
+    enc = cfg.encdec.encoder_seq
+    log(f"[{tag}] {cfg.name}: {n_params:,} parameters (float32, drawn on "
+        f"the card from seed 0) in {init_s:.3f} s; "
+        f"{cfg.encdec.num_encoder_layers} encoder + {cfg.num_layers} "
+        f"decoder layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim()}, {enc} source frames; compute dtype "
+        f"{cfg.dtype}; every attention on the plain route, as in JAX")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, s = ENCDEC_PREFILL
+    batch = {"src_embeds": torch.randn(b, enc, cfg.d_model, device=dev,
+                                       generator=gen),
+             "tokens": torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                                     generator=gen)}
+    zero_counts(counted)
+    logits, first_s = _timed(lambda: model.prefill(params, batch))
+    launches = read_counts(counted)
+    if any(launches.values()):
+        raise AssertionError(f"[{tag}] the encoder-decoder launched "
+                             f"{launches}: JAX runs it on plain code")
+    torch.cuda.reset_peak_memory_stats()
+    again, steady_s = _timed(lambda: model.prefill(params, batch))
+    peak = torch.cuda.max_memory_allocated()
+    if logits.shape != (b, 1, cfg.vocab_size) \
+            or not torch.isfinite(logits).all() \
+            or not torch.equal(again, logits):
+        raise AssertionError(f"[{tag}] prefill {(b, s)}: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}, "
+                             f"deterministic {torch.equal(again, logits)}")
+    log(f"[{tag}] launches in the path: {launches} (no kernel, as in JAX); "
+        f"prefill {(b, s)} over ({b}, {enc}, {cfg.d_model}) frames: first "
+        f"call {first_s:.4f} s, again {steady_s:.4f} s "
+        f"({b * s / steady_s:,.0f} tokens/s), peak memory "
+        f"{peak / 1e9:.2f} GB")
+    del logits, again
+    # decode: a (4, 64) prompt over the prefill's frames, 32 greedy
+    pb, ps, n_gen = b, 64, 32
+    src = batch["src_embeds"]
+    prompt = torch.randint(0, cfg.vocab_size, (pb, ps), device=dev,
+                           generator=gen)
+    _encdec_decode(model, params, src, prompt[:, :2], 2)      # warm-up
+    dec, toks, dec_s = _encdec_decode(model, params, src, prompt, n_gen)
+    steps = ps + n_gen
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"[{tag}] generated tokens out of range")
+    pre = model.prefill(params, {"src_embeds": src, "tokens": prompt})
+    bf16_diff = float((dec.float() - pre.float()).abs().max())
+    bf16_same = int((dec.argmax(-1) == pre.argmax(-1)).sum())
+    f32 = EncDecModel(dataclasses.replace(cfg, dtype="float32"))
+    diff, gap, held = _decode_gap(
+        _encdec_decode(f32, params, src, prompt, 0)[0],
+        f32.prefill(params, {"src_embeds": src, "tokens": prompt}),
+        f"{tag} decode vs prefill in float32 compute")
+    out = dict(params=n_params, init_s=init_s, launches=launches,
+               prefill=dict(shape=[b, s], frames=enc, first_s=first_s,
+                            steady_s=steady_s, tok_per_s=b * s / steady_s,
+                            peak_gb=peak / 1e9),
+               decode=dict(batch=pb, prompt=ps, gen=n_gen, wall_s=dec_s,
+                           decode_steps=steps,
+                           ms_per_decode_step=dec_s / steps * 1e3,
+                           max_abs_dlogit_decode_vs_prefill_f32=diff,
+                           min_top2_gap=gap, rows_held_to_argmax=held,
+                           max_abs_dlogit_decode_vs_prefill_bf16=bf16_diff,
+                           argmax_equal_rows_bf16=bf16_same))
+    log(f"[{tag}] decode over the cross cache: {steps} steps ({ps} prompt "
+        f"+ {n_gen} greedy) in {dec_s:.3f} s, {dec_s / steps * 1e3:.3f} ms "
+        f"per step (host clock); decode vs prefill at the prompt's last "
+        f"token, float32 compute: max |dlogit| {diff:.4g} (bar {LM_TOL}), "
+        f"smallest top-2 gap {gap:.4g}, argmax equal in the {held} of {pb} "
+        f"rows whose gap exceeds twice it; bfloat16 compute: max |dlogit| "
+        f"{bf16_diff:.4g}, argmax equal in {bf16_same} of {pb} rows")
+    report["serve_encdec"] = out
+    del params, model, f32, batch, src
     torch.cuda.empty_cache()
     return out
 
@@ -3418,6 +3783,10 @@ def main() -> int:
     # 5b. the rwkv serve path at full width and depth, counted
     rwkv_launches, rwkv_model, rwkv_params = phase_serve_rwkv(counted,
                                                               report)
+    # their weights go before the big models load (--profile draws them
+    # again from the same seed)
+    del params, rwkv_params
+    torch.cuda.empty_cache()
     # 5c, 5d. zamba2-7b and gemma-7b at full width and depth, counted,
     # each freed before the next loads
     t0 = time.perf_counter()
@@ -3425,6 +3794,14 @@ def main() -> int:
     gemma = phase_serve_gemma(counted, report)
     report["serve_5c_5d_s"] = time.perf_counter() - t0
     log(f"[serve] phases 5c and 5d: {report['serve_5c_5d_s']:.1f} s")
+    # 5e-5g. the MoE decoders (depth cut), the stub-frontend decoder and
+    # the encoder-decoder at full width, counted, each freed
+    t0 = time.perf_counter()
+    moe = phase_serve_moe(counted, report)
+    vlm = phase_serve_vlm(counted, report)
+    phase_serve_encdec(counted, report)
+    report["serve_5e_5g_s"] = time.perf_counter() - t0
+    log(f"[serve] phases 5e-5g: {report['serve_5e_5g_s']:.1f} s")
     rows["ssm_scan"] += zamba["ssm_rows"]
     # 7. training at full width (launch.train, a restore), card against
     # CPU, the kernel route under training; ST-LF over LM clients, counted
@@ -3445,6 +3822,11 @@ def main() -> int:
                 zamba["launches"]["flash_attention"],
             f"{GEMMA_ARCH} prefills {PREFILLS}":
                 gemma["launches"]["flash_attention"],
+            **{f"{arch} ({layers} layers) prefills {PREFILLS}":
+               moe[arch]["launches"]["flash_attention"]
+               for arch, layers in MOE_PATHS},
+            f"{VLM_ARCH} prefills {PREFILLS} (256 frontend rows + text)":
+                vlm["launches"]["flash_attention"],
             f"{TRAIN_ARCH} loss under no_grad {TRAIN_RUN[1:3]} (a check)":
                 train_out["kernel_route"]["launches"]["flash_attention"]},
         "ssm_scan": {
@@ -3458,8 +3840,12 @@ def main() -> int:
     phase_small_lm()
     phase_small_rwkv()
     if "--profile" in sys.argv[1:]:
-        phase_profile(state, stlf, (model, params),
-                      (rwkv_model, rwkv_params), sim_engines, report)
+        dev = torch.device("cuda")
+        phase_profile(state, stlf, (model, model.init(
+            torch.Generator(device=dev).manual_seed(0), device=dev)),
+            (rwkv_model, rwkv_model.init(
+                torch.Generator(device=dev).manual_seed(0), device=dev)),
+            sim_engines, report)
 
     paths = {"alpha_combine": "ST-LF round (prepare_round, run_stlf)",
              "disagreement": "ST-LF round (prepare_round, run_stlf)",

@@ -1,10 +1,10 @@
 """Architecture configs the port can build (copies of ``repro.configs``).
 
-Registered: the five dense decoders (llama3.2-1b, repro-100m, gemma-7b,
-granite-34b, minitron-8b), rwkv6-1.6b and the hybrid zamba2-7b.  The MoE
-(grok-1, llama4-scout), encoder-decoder (seamless-m4t) and stub-frontend
-(internvl2-2b) configs come with the slices that port their models
-(``ROADMAP.md`` queue 1, items 6.4 and 6.5).
+Registered: every config of the JAX package — the five dense decoders
+(llama3.2-1b, repro-100m, gemma-7b, granite-34b, minitron-8b), rwkv6-1.6b,
+the hybrid zamba2-7b, the MoE decoders grok-1-314b and
+llama4-scout-17b-a16e, the stub-frontend decoder internvl2-2b and the
+encoder-decoder seamless-m4t-large-v2.
 """
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig, MoEConfig, SSMConfig, HybridConfig, EncDecConfig,
@@ -13,8 +13,11 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _LOADED = False
 
-_MODULES = ["granite_34b", "rwkv6_1p6b", "minitron_8b", "llama3p2_1b",
-            "gemma_7b", "zamba2_7b", "repro_100m"]
+_MODULES = [
+    "grok_1_314b", "granite_34b", "rwkv6_1p6b", "minitron_8b",
+    "llama3p2_1b", "gemma_7b", "seamless_m4t_large_v2",
+    "llama4_scout_17b_a16e", "zamba2_7b", "internvl2_2b", "repro_100m",
+]
 
 
 def load_all():

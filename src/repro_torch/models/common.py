@@ -44,6 +44,17 @@ def unstack(tree):
     return list(torch.unbind(tree, 0))
 
 
+def spec_zeros(specs, device):
+    """Zeros of a tree (dicts and tuples) of specs on ``device``: a
+    model's empty decode cache."""
+    if isinstance(specs, dict):
+        return {k: spec_zeros(v, device) for k, v in specs.items()}
+    if isinstance(specs, tuple):
+        return tuple(spec_zeros(v, device) for v in specs)
+    return torch.zeros(specs.shape, dtype=getattr(torch, specs.dtype),
+                       device=device)
+
+
 def maybe_checkpoint(on: bool, fn, *args):
     """``fn(*args)``, recomputed in the backward pass when ``on`` and
     autograd is recording (``jax.checkpoint``'s counterpart: the values

@@ -1,5 +1,8 @@
-"""Decoder-only LM, dense family (llama3.2, repro-100m, gemma, granite,
-minitron): the port of ``repro.models.decoder.DecoderLM``.
+"""Decoder-only LM: the port of ``repro.models.decoder.DecoderLM``.  Dense
+(llama3.2, repro-100m, gemma, granite, minitron), MoE (grok-1,
+llama4-scout: ``nn/moe.py`` in place of the MLP, its load-balance loss
+summed over layers into ``loss``) and stub-frontend decoders (internvl2:
+``batch["embeds"]`` rows prepended to the token embeddings).
 
 Parameters keep JAX's layer-stacked layout (``layers/attn/wq`` is
 (L, D, H, hd)); JAX's ``lax.scan`` over layers is a Python loop over
@@ -7,8 +10,7 @@ Parameters keep JAX's layer-stacked layout (``layers/attn/wq`` is
 trains through the attention of ``cfg.attention_impl``: ``"dot"`` or
 ``"chunked"`` (the kernel has no backward pass and refuses an input
 that requires grad); with ``cfg.remat`` each layer is recomputed in the
-backward pass, as JAX's ``jax.checkpoint`` over its scanned block.  MoE
-layers and stub frontends wait for their slices.
+backward pass, as JAX's ``jax.checkpoint`` over its scanned block.
 """
 from __future__ import annotations
 
@@ -19,38 +21,34 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import (LMBase, chunked_softmax_xent,
-                                      maybe_checkpoint, stack_specs,
-                                      take_layer, unstack)
+                                      maybe_checkpoint, spec_zeros,
+                                      stack_specs, take_layer, unstack)
 from repro_torch.nn import attention as attn
 from repro_torch.nn import mlp as mlp_lib
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import param as P
 from repro_torch.nn.layers import (embed, embedding_spec, rmsnorm,
                                    rmsnorm_spec, unembed)
 
 
 def _layer_specs(cfg: ModelConfig):
-    return {
+    specs = {
         "ln1": rmsnorm_spec(cfg.d_model),
         "attn": attn.attention_specs(cfg.d_model, cfg.num_heads,
                                      cfg.num_kv_heads,
                                      cfg.resolved_head_dim()),
         "ln2": rmsnorm_spec(cfg.d_model),
-        "mlp": mlp_lib.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_activation),
     }
+    if cfg.moe is not None:
+        specs["moe"] = moe_lib.moe_specs(cfg.d_model, cfg.d_ff, cfg.moe,
+                                         cfg.mlp_activation)
+    else:
+        specs["mlp"] = mlp_lib.mlp_specs(cfg.d_model, cfg.d_ff,
+                                         cfg.mlp_activation)
+    return specs
 
 
 class DecoderLM(LMBase):
-    def __init__(self, cfg: ModelConfig):
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP.md "
-                f"queue 1, item 6.4: MoE)")
-        if cfg.frontend.kind != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: stub frontends are not ported yet "
-                f"(ROADMAP.md queue 1, item 6.5)")
-        super().__init__(cfg)
-
     def param_specs(self):
         cfg = self.cfg
         specs = {
@@ -65,7 +63,18 @@ class DecoderLM(LMBase):
         return specs
 
     # ------------------------------------------------------------- forward
-    def _block(self, p, x, positions, window, dtype):
+    def _ffn(self, p, x, dtype, pin=None):
+        """The block's MLP or MoE on x = rmsnorm(h): (y, aux, the expert
+        ids it routed to or None)."""
+        cfg = self.cfg
+        if cfg.moe is None:
+            return mlp_lib.mlp(p["mlp"], x, cfg.mlp_activation, dtype), \
+                torch.zeros((), dtype=torch.float32, device=x.device), None
+        return moe_lib.moe_mlp_routed(p["moe"], x, cfg.moe,
+                                      cfg.mlp_activation, dtype,
+                                      expert_ids=pin)
+
+    def _block(self, p, x, positions, window, dtype, pin=None):
         cfg = self.cfg
         h = attn.attend(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
                         positions, num_heads=cfg.num_heads,
@@ -75,28 +84,41 @@ class DecoderLM(LMBase):
                         window=window, dtype=dtype,
                         impl=cfg.attention_impl)
         x = x + h
-        y = mlp_lib.mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
-                        cfg.mlp_activation, dtype)
-        return x + y
+        y, aux, ids = self._ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps),
+                                dtype, pin)
+        return x + y, aux, ids
 
-    def _backbone(self, params, x, positions, window=None):
+    def _backbone(self, params, x, positions, window=None, pins=None):
+        """(final-normed hidden, the layers' summed aux loss, each MoE
+        layer's expert ids); ``pins`` (L, B, S, k) fixes the routing."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
-        for lp in unstack(params["layers"]):
-            x = maybe_checkpoint(cfg.remat, self._block, lp, x, positions,
-                                 window, dtype)
-        return rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        ids = []
+        for i, lp in enumerate(unstack(params["layers"])):
+            x, a, e = maybe_checkpoint(
+                cfg.remat, self._block, lp, x, positions, window, dtype,
+                None if pins is None else pins[i])
+            aux = aux + a
+            ids.append(e)
+        return rmsnorm(x, params["ln_f"], cfg.norm_eps), aux, ids
 
     def _embed_inputs(self, params, batch, dtype):
-        return embed(batch["tokens"], params["embedding"], dtype)
+        x = embed(batch["tokens"], params["embedding"], dtype)
+        if "embeds" in batch:   # vlm/audio stub frontend: prepend embeddings
+            x = torch.cat([batch["embeds"].to(dtype), x], dim=1)
+        return x
 
     def _table(self, params):
         return params["embedding"] if self.cfg.tie_embeddings \
             else params["unembed"]
 
     def _hidden(self, params, batch):
-        """The final-normed hidden (B, S, D) of ``batch["tokens"]``;
-        the sliding window applies only past ``cfg.sliding_window``."""
+        """``_backbone`` over ``batch["tokens"]`` (after ``batch["embeds"]``
+        where given; positions run over the whole sequence); the sliding
+        window applies only past ``cfg.sliding_window``.
+        ``batch["expert_ids"]`` (L, B, S, k), for checks only, pins the
+        MoE routing (``nn.moe.moe_mlp``)."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch, getattr(torch, cfg.dtype))
         b, s, _ = x.shape
@@ -104,22 +126,33 @@ class DecoderLM(LMBase):
         return self._backbone(params, x, positions,
                               window=cfg.sliding_window
                               if cfg.sliding_window
-                              and s > cfg.sliding_window else None)
+                              and s > cfg.sliding_window else None,
+                              pins=batch.get("expert_ids"))
 
     # ------------------------------------------------------------- training
     def loss(self, params, batch):
-        h = self._hidden(params, batch)
+        """(ce + the MoE layers' aux loss, {"ce", "aux"}); the frontend's
+        ``embeds`` rows carry no labels."""
+        h, aux, _ = self._hidden(params, batch)
         npad = h.shape[1] - batch["labels"].shape[1]
         ce = chunked_softmax_xent(h[:, npad:], self._table(params),
                                   batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
     def prefill(self, params, batch):
-        h = self._hidden(params, batch)
+        h, _, _ = self._hidden(params, batch)
         return unembed(h[:, -1:], self._table(params))
+
+    @torch.no_grad()
+    def routing(self, params, batch):
+        """The expert ids (L, B, S, k) that ``prefill`` of ``batch`` routes
+        each MoE layer's tokens to: what ``batch["expert_ids"]`` takes to
+        replay this routing on another attention route."""
+        if self.cfg.moe is None:
+            raise ValueError(f"{self.cfg.name} has no MoE layers")
+        return torch.stack(self._hidden(params, batch)[2])
 
     def cache_specs(self, batch: int, max_len: int):
         cfg = self.cfg
@@ -130,10 +163,8 @@ class DecoderLM(LMBase):
     def init_cache(self, batch: int, max_len: int,
                    device: DeviceLike = None):
         """Zeros of ``cache_specs`` on ``device`` (default: the GPU)."""
-        dev = resolve_device(device)
-        return {k: torch.zeros(s.shape, dtype=getattr(torch, s.dtype),
-                               device=dev)
-                for k, s in self.cache_specs(batch, max_len).items()}
+        return spec_zeros(self.cache_specs(batch, max_len),
+                          resolve_device(device))
 
     @torch.no_grad()
     def decode_step(self, params, cache, batch,
@@ -159,7 +190,7 @@ class DecoderLM(LMBase):
                 head_dim=cfg.resolved_head_dim(), rope_theta=cfg.rope_theta,
                 window=win, dtype=dtype)
             h = h + a
-            h = h + mlp_lib.mlp(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps),
-                                cfg.mlp_activation, dtype)
+            h = h + self._ffn(p, rmsnorm(h, p["ln2"], cfg.norm_eps),
+                              dtype)[0]
         h = rmsnorm(h, params["ln_f"], cfg.norm_eps)
         return unembed(h, self._table(params)), cache

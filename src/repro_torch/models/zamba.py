@@ -27,8 +27,8 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import (LMBase, chunked_softmax_xent,
-                                      maybe_checkpoint, stack_specs,
-                                      take_layer, unstack)
+                                      maybe_checkpoint, spec_zeros,
+                                      stack_specs, take_layer, unstack)
 from repro_torch.nn import attention as attn
 from repro_torch.nn import mamba
 from repro_torch.nn import mlp as mlp_lib
@@ -51,15 +51,6 @@ def _shared_block_specs(cfg):
         "mlp": mlp_lib.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_activation),
     }
 
-
-def _zeros(specs, device):
-    """Zeros of a tree (dicts and tuples) of specs on ``device``."""
-    if isinstance(specs, dict):
-        return {k: _zeros(v, device) for k, v in specs.items()}
-    if isinstance(specs, tuple):
-        return tuple(_zeros(v, device) for v in specs)
-    return torch.zeros(specs.shape, dtype=getattr(torch, specs.dtype),
-                       device=device)
 
 
 class ZambaModel(LMBase):
@@ -176,8 +167,8 @@ class ZambaModel(LMBase):
     def init_cache(self, batch: int, max_len: int,
                    device: DeviceLike = None):
         """Zeros of ``cache_specs`` on ``device`` (default: the GPU)."""
-        return _zeros(self.cache_specs(batch, max_len),
-                      resolve_device(device))
+        return spec_zeros(self.cache_specs(batch, max_len),
+                          resolve_device(device))
 
     @torch.no_grad()
     def decode_step(self, params, cache, batch):

@@ -37,14 +37,33 @@ def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
     return k if rep == 1 else k.repeat_interleave(rep, dim=2)
 
 
-def dot_attention(q, k, v, mask, dtype=torch.bfloat16):
-    """q: (B,Sq,H,hd); k,v: (B,Sk,H,hd); mask (B,1,Sq,Sk) or (1,1,Sq,Sk)."""
+# fp32 score elements ``dot_attention`` holds at once (4 GiB): past
+# them it takes the queries a block of rows at a time
+SCORES_BLOCK = 1 << 30
+
+
+def _dot_rows(q, k, v, mask, dtype):
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         / float(q.shape[-1]) ** 0.5
     scores.masked_fill_(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(dtype)
     del scores
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
+
+
+def dot_attention(q, k, v, mask, dtype=torch.bfloat16):
+    """q: (B,Sq,H,hd); k,v: (B,Sk,H,hd); mask (B,1,Sq,Sk) or (1,1,Sq,Sk).
+    The scores are materialized, for SCORES_BLOCK elements at most: a
+    longer prompt's queries go a block of rows at a time (each row's
+    softmax is its own), so a (1, 9216) prompt of 48 heads holds 4 GiB
+    of scores, not 15."""
+    b, sq, h, _ = q.shape
+    rows = max(1, SCORES_BLOCK // (b * h * k.shape[1]))
+    if rows >= sq:
+        return _dot_rows(q, k, v, mask, dtype)
+    return torch.cat([_dot_rows(q[:, r:r + rows], k, v,
+                                mask[..., r:r + rows, :], dtype)
+                      for r in range(0, sq, rows)], dim=1)
 
 
 def chunked_attention(q, k, v, *, causal=True, window=None,

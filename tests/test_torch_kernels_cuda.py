@@ -751,3 +751,53 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
         assert float((~keep).double().mean()) <= 1e-4
         assert float((da - db)[keep].norm()) \
             <= DELTA_TOL[arch] * float(db[keep].norm()) + 1e-12
+
+
+# The GQA ratios the MoE and vlm decoders give the kernel at D = 128:
+# grok-1's 48/8 (6), llama4-scout's 40/8 (5) and internvl2-2b's 16/8 (2),
+# causal and with a window edge inside a key tile.  Last in the file, as
+# above.
+FLASH_GQA_GRID = [(2, 512, 512, h, 8, 128, True, w)
+                  for h in (48, 40, 16) for w in (None, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FLASH_GQA_GRID)
+def test_flash_attention_kernel_at_moe_and_vlm_gqa_on_card(
+        cuda, b, sq, sk, h, kv, d, causal, window):
+    test_flash_attention_kernel_on_card(cuda, b, sq, sk, h, kv, d, causal,
+                                        window, torch.bfloat16,
+                                        dict(atol=1e-5, rtol=2.0 ** -7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-scout-17b-a16e",
+                                  "internvl2-2b"])
+def test_moe_and_vlm_prefill_go_through_the_flash_kernel(cuda, arch):
+    """The MoE decoders and the stub-frontend decoder at 2 layers of
+    d_model 128, fp32, through the kernel (one launch a layer): the card
+    against the CPU port, the MoE routing pinned to the CPU's (a
+    near-tie may route differently on another summation order)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(
+        get_config(arch).reduced(num_layers=2, d_model=128),
+        dtype="float32", attention_impl="kernel")
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    batch = {"tokens": torch.as_tensor(
+        RNG.integers(0, cfg.vocab_size, (2, 80)))}
+    if cfg.frontend.kind != "none":
+        batch["embeds"] = torch.as_tensor(RNG.normal(
+            size=(2, cfg.frontend.num_embeds, cfg.d_model)),
+            dtype=torch.float32)
+    if cfg.moe is not None:
+        batch["expert_ids"] = model.routing(cpu_params, batch)
+    cpu = model.prefill(cpu_params, batch)
+    before = fa.flash_attention.launches
+    out = model.prefill(params, {k: v.to(cuda) for k, v in batch.items()})
+    assert fa.flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(out.cpu(), cpu, atol=1e-4, rtol=1e-4)

@@ -1,7 +1,8 @@
-"""The dense decoder LM's serving path in the port against the JAX
-package: configs, layers, attention (every impl, cached decode with a
-full and a ring-buffer cache), ``DecoderLM.prefill`` / ``decode_step``
-and ``serve.generate``, with JAX's weights carried across by
+"""The decoder LM's serving path in the port against the JAX package:
+configs, layers, attention (every impl, cached decode with a full and a
+ring-buffer cache), ``DecoderLM.prefill`` / ``decode_step`` and
+``serve.generate`` for the dense, MoE (with the routing pinned in bf16)
+and stub-frontend decoders, with JAX's weights carried across by
 ``convert.lm_params_from_jax``.  JAX's Pallas path runs in interpret
 mode, as ``tests/test_attention_impls.py`` runs it."""
 import dataclasses
@@ -69,7 +70,9 @@ def _as_port(d):
 @pytest.mark.parametrize("name",
                          ["llama3.2-1b", "repro-100m", "rwkv6-1.6b",
                           "gemma-7b", "granite-34b", "minitron-8b",
-                          "zamba2-7b"])
+                          "zamba2-7b", "grok-1-314b",
+                          "llama4-scout-17b-a16e", "internvl2-2b",
+                          "seamless-m4t-large-v2"])
 def test_config_copies_match_jax(name):
     j, t = jget_config(name), tconfigs.get_config(name)
     assert dataclasses.asdict(t) == _as_port(dataclasses.asdict(j))
@@ -80,13 +83,15 @@ def test_config_copies_match_jax(name):
     assert t.supports_long_context == j.supports_long_context
     assert convert.ATTENTION_IMPL_FROM_JAX == IMPLS
     assert sorted(tconfigs.all_configs()) == [
-        "gemma-7b", "granite-34b", "llama3.2-1b", "minitron-8b",
-        "repro-100m", "rwkv6-1.6b", "zamba2-7b"]
+        "gemma-7b", "granite-34b", "grok-1-314b", "internvl2-2b",
+        "llama3.2-1b", "llama4-scout-17b-a16e", "minitron-8b",
+        "repro-100m", "rwkv6-1.6b", "seamless-m4t-large-v2", "zamba2-7b"]
 
 
 def test_param_specs_and_count_match_jax():
     for name in ("llama3.2-1b", "repro-100m", "gemma-7b", "granite-34b",
-                 "minitron-8b"):
+                 "minitron-8b", "grok-1-314b", "llama4-scout-17b-a16e",
+                 "internvl2-2b", "seamless-m4t-large-v2"):
         cfg = tconfigs.get_config(name)
         t, j = build_model(cfg).param_specs(), \
             jbuild_model(jget_config(name)).param_specs()
@@ -133,6 +138,18 @@ def test_lm_params_round_trip():
     assert bf["a"]["w"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         convert.lm_params_to_numpy(bf)["a"]["w"], [1.5, -2.0])
+
+
+def test_moe_params_round_trip():
+    """An MoE layer's ``moe`` subtree (router, stacked experts) carried
+    both ways."""
+    _, jp, _, tp = _model_pair("grok-1-314b")
+    back = convert.lm_params_to_numpy(tp)
+    assert sorted(back["layers"]["moe"]) == ["router", "wi_gate", "wi_up",
+                                             "wo"]
+    for a, b in zip(jax.tree_util.tree_leaves(jp),
+                    jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(np.asarray(a), b)
 
 
 # ------------------------------------------------------------------- layers
@@ -321,13 +338,30 @@ def test_serve_cli_on_cpu(capsys):
     assert "generated 2x3 tokens" in capsys.readouterr().out
 
 
-def test_unported_families_raise():
-    base = tconfigs.get_config("llama3.2-1b")
-    for over in (dict(encdec=tconfigs.EncDecConfig()),
-                 dict(moe=tconfigs.MoEConfig()),
-                 dict(frontend=tconfigs.FrontendStub("vision", 4, 8))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(dataclasses.replace(base, **over))
+@pytest.mark.parametrize("over,cls", [
+    (dict(encdec=tconfigs.EncDecConfig(num_encoder_layers=2,
+                                       encoder_seq=8)), "EncDecModel"),
+    (dict(moe=tconfigs.MoEConfig(num_experts=4, top_k=2)), "DecoderLM"),
+    (dict(frontend=tconfigs.FrontendStub("vision", 4, 128)), "DecoderLM")])
+def test_new_families_build_and_prefill(over, cls):
+    """Each family that waited for its slice now builds its model class
+    and runs a prefill: the encoder-decoder over stub frames, MoE layers
+    in place of the MLP, and a stub frontend's rows before the tokens."""
+    _, tcfg = _cfgs("llama3.2-1b", dtype="float32")
+    cfg = dataclasses.replace(tcfg, **over)
+    model = build_model(cfg)
+    assert type(model).__name__ == cls
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": torch.as_tensor(_tokens(cfg, (2, 6)))}
+    if cfg.encdec is not None:
+        batch["src_embeds"] = torch.randn(2, 8, 128)
+    if cfg.frontend.kind != "none":
+        batch["embeds"] = torch.randn(2, 4, 128)
+    out = model.prefill(params, batch)
+    assert out.shape == (2, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(out).all())
+    if cls == "DecoderLM":
+        assert ("moe" in params["layers"]) == (cfg.moe is not None)
 
 
 def test_build_model_gives_rwkv_for_ssm():
@@ -349,3 +383,188 @@ def test_lm_entry_points_refuse_silent_cpu():
         model.init_cache(1, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--smoke"])
+
+
+# ------------------------------------------------------------ MoE and vlm
+# grok-1 (top-2 of 4 experts at reduced(), GeGLU) and llama4-scout (top-1,
+# SwiGLU), 4/2 heads of 32
+MOE = ["grok-1-314b", "llama4-scout-17b-a16e"]
+
+
+def _jax_routing(jm, jp, tokens):
+    """The expert ids (L, B, S, k) that JAX's ``DecoderLM.prefill`` routes
+    each layer's tokens to: its blocks run one by one, the router read
+    between attention and MoE (rmsnorm, fp32 softmax, ``lax.top_k``)."""
+    cfg = jm.cfg
+    dtype = jnp.dtype(cfg.dtype)
+    x = jm._embed_inputs(jp, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                         dtype)
+    b, s, _ = x.shape
+    positions = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32), (b, s))
+    ids = []
+    for i in range(cfg.num_layers):
+        lp = jax.tree_util.tree_map(lambda a: a[i], jp["layers"])
+        h = jattn.attend(lp["attn"], jlayers.rmsnorm(x, lp["ln1"],
+                                                     cfg.norm_eps),
+                         positions, num_heads=cfg.num_heads,
+                         num_kv_heads=cfg.num_kv_heads,
+                         head_dim=cfg.resolved_head_dim(),
+                         rope_theta=cfg.rope_theta, causal=True,
+                         dtype=dtype, impl=cfg.attention_impl)
+        xn = jlayers.rmsnorm(x + h, lp["ln2"], cfg.norm_eps)
+        logits = jnp.einsum("bsd,de->bse", xn.astype(jnp.float32),
+                            lp["moe"]["router"].astype(jnp.float32))
+        ids.append(np.array(jax.lax.top_k(jax.nn.softmax(logits, -1),
+                                          cfg.moe.top_k)[1]))
+        x, _ = jm._block(lp, x, positions, jlayers.NO_SHARD, None, dtype)
+    return np.stack(ids)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_prefill_matches_jax_f32(name):
+    """fp32 compute through the kernel route (JAX's Pallas in interpret
+    mode): the routing is JAX's token for token, the logits within F32."""
+    jm, jp, tm, tp = _model_pair(name, dtype="float32",
+                                 attention_impl="pallas",
+                                 sliding_window=None)
+    toks = _tokens(jm.cfg, (2, 64))
+    ref = np.asarray(jm.prefill(jp, {"tokens": jnp.asarray(toks,
+                                                           jnp.int32)}))
+    out = tm.prefill(tp, {"tokens": torch.as_tensor(toks)})
+    np.testing.assert_allclose(out.numpy(), ref, **F32)
+    ids = tm.routing(tp, {"tokens": torch.as_tensor(toks)})
+    np.testing.assert_array_equal(ids.numpy(), _jax_routing(jm, jp, toks))
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_prefill_bf16_with_jax_routing_pinned(name):
+    """bf16: the port's own routing differs from JAX's only at near-ties
+    (the count is printed); with JAX's expert ids pinned through
+    ``batch["expert_ids"]`` the logits hold to BF16, argmax equal."""
+    jm, jp, tm, tp = _model_pair(name, dtype="bfloat16",
+                                 attention_impl="pallas",
+                                 sliding_window=None)
+    toks = _tokens(jm.cfg, (2, 64))
+    ref = np.asarray(jm.prefill(jp, {"tokens": jnp.asarray(toks,
+                                                           jnp.int32)}),
+                     np.float32)
+    jids = _jax_routing(jm, jp, toks)
+    own = tm.routing(tp, {"tokens": torch.as_tensor(toks)}).numpy()
+    flips = int((np.sort(own, -1) != np.sort(jids, -1)).any(-1).sum())
+    print(f"{name}: {flips} of {own[..., 0].size} (layer, token) routings "
+          f"differ from JAX's in bf16")
+    out = tm.prefill(tp, {"tokens": torch.as_tensor(toks),
+                          "expert_ids": torch.as_tensor(jids)}).numpy()
+    np.testing.assert_allclose(out, ref, **BF16)
+    assert np.array_equal(out.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_decode_steps_match_jax(name):
+    """12 fp32 decode steps: the MoE layer on (B, 1, D), where a group is
+    one token and nothing is dropped."""
+    jm, jp, tm, tp = _model_pair(name, dtype="float32")
+    toks = _tokens(jm.cfg, (2, 12))
+    jc, tc = jm.init_cache(2, 16), tm.init_cache(2, 16, device="cpu")
+    step = jax.jit(lambda p, c, b: jm.decode_step(p, c, b))
+    for t in range(12):
+        ref, jc = step(jp, jc, {"token": jnp.asarray(toks[:, t:t + 1],
+                                                     jnp.int32),
+                                "pos": jnp.full((2,), t, jnp.int32)})
+        out, tc = tm.decode_step(tp, tc, {
+            "token": torch.as_tensor(toks[:, t:t + 1]),
+            "pos": torch.full((2,), t)})
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_decode_matches_prefill_when_dropless(name):
+    """JAX's serving invariant on its dropless config
+    (``capacity_factor = num_experts``, tests/test_decode_parity.py): at
+    cf 1.25 prefill may drop choices that decode (one token a group)
+    keeps."""
+    jcfg, tcfg = _cfgs(name, dtype="float32")
+    moe = dataclasses.replace(tcfg.moe,
+                              capacity_factor=float(tcfg.moe.num_experts))
+    tm = build_model(dataclasses.replace(tcfg, moe=moe))
+    tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.as_tensor(_tokens(tcfg, (2, 12)))
+    full = tm.prefill(tp, {"tokens": toks})
+    cache = tm.init_cache(2, 16, device="cpu")
+    for t in range(12):
+        logits, cache = tm.decode_step(tp, cache, {
+            "token": toks[:, t:t + 1], "pos": torch.full((2,), t)})
+    np.testing.assert_allclose(logits.numpy(), full.numpy(), **F32)
+
+
+def _vlm_batch(cfg, s, seed=0):
+    r = np.random.default_rng(seed)
+    return {"tokens": r.integers(0, cfg.vocab_size, (2, s)),
+            "embeds": r.normal(size=(2, cfg.frontend.num_embeds,
+                                     cfg.d_model)).astype(np.float32),
+            "labels": r.integers(0, cfg.vocab_size, (2, s))}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vlm_prefill_with_embeds_matches_jax(dtype):
+    """internvl2-2b: 16 frontend rows before 48 tokens, positions over
+    all 64, the kernel route (sliding window 24 inside the prompt)."""
+    jm, jp, tm, tp = _model_pair("internvl2-2b", dtype=dtype,
+                                 attention_impl="pallas",
+                                 sliding_window=24)
+    b = _vlm_batch(jm.cfg, 48)
+    ref = np.asarray(jm.prefill(jp, {
+        "tokens": jnp.asarray(b["tokens"], jnp.int32),
+        "embeds": jnp.asarray(b["embeds"])}), np.float32)
+    out = tm.prefill(tp, {"tokens": torch.as_tensor(b["tokens"]),
+                          "embeds": torch.as_tensor(b["embeds"])})
+    assert out.shape == ref.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), ref, **F32)
+    else:
+        np.testing.assert_allclose(out.float().numpy(), ref, **BF16)
+        assert np.array_equal(out.numpy().argmax(-1), ref.argmax(-1))
+
+
+def test_vlm_loss_skips_the_frontend_rows_as_jax():
+    jm, jp, tm, tp = _model_pair("internvl2-2b", dtype="float32")
+    b = _vlm_batch(jm.cfg, 40, seed=1)
+    jl, jmet = jm.loss(jp, {"tokens": jnp.asarray(b["tokens"], jnp.int32),
+                            "embeds": jnp.asarray(b["embeds"]),
+                            "labels": jnp.asarray(b["labels"], jnp.int32)})
+    tl, tmet = tm.loss(tp, {k: torch.as_tensor(v) for k, v in b.items()})
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert float(tmet["aux"]) == float(jmet["aux"]) == 0.0
+
+
+@pytest.mark.parametrize("arch", MOE + ["internvl2-2b",
+                                        "seamless-m4t-large-v2"])
+def test_serve_cli_on_cpu_new_families(arch, capsys):
+    """``launch.serve --smoke`` on the new families: tokens only, as
+    JAX's ``generate`` (no frontend rows; the encoder-decoder's cross
+    cache the zeros ``init_cache`` gives)."""
+    tserve.main(["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
+                 "4", "--gen", "3", "--device", "cpu"])
+    assert "generated 2x3 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_dot_attention_in_row_blocks_matches_one_block(window,
+                                                       monkeypatch):
+    """Past SCORES_BLOCK score elements the dot route takes its queries
+    a block of rows at a time (a ragged last block here): the same
+    function, and still JAX's."""
+    jp, tp = _attn_params()
+    x = RNG.normal(size=(2, 50, 64)).astype(np.float32)
+    pos = np.tile(np.arange(50), (2, 1))
+    kw = dict(num_heads=4, num_kv_heads=2, head_dim=16, rope_theta=1e4,
+              window=window)
+    whole = tattn.attend(tp, torch.as_tensor(x), torch.as_tensor(pos),
+                         dtype=torch.float32, **kw)
+    monkeypatch.setattr(tattn, "SCORES_BLOCK", 2 * 4 * 50 * 7)   # 7 rows
+    blocked = tattn.attend(tp, torch.as_tensor(x), torch.as_tensor(pos),
+                           dtype=torch.float32, **kw)
+    torch.testing.assert_close(blocked, whole, atol=1e-6, rtol=1e-6)
+    ref = jattn.attend(jp, jnp.asarray(x), jnp.asarray(pos, jnp.int32),
+                       dtype=jnp.float32, **kw)
+    np.testing.assert_allclose(blocked.numpy(), np.asarray(ref), **F32)

@@ -52,7 +52,10 @@ RWKV_MAX = 1e-3                   # of max|g_jax|; observed <= 2.2e-4
 # within 3.7e-4, leaves within 0.036 (rwkv6, zamba2-7b) and 0.013
 BF16_LOSS_ATOL = 2e-2
 BF16_GRAD_FRO = 5e-2              # ||g_port - g_jax|| / ||g_jax||
-FAMILIES = ["repro-100m", "rwkv6-1.6b", "zamba2-7b", "gemma-7b"]
+# grok-1-314b: MoE layers (top-2 of 4 experts at reduced()), its loss
+# ce + the summed load-balance aux
+FAMILIES = ["repro-100m", "rwkv6-1.6b", "zamba2-7b", "gemma-7b",
+            "grok-1-314b"]
 
 
 def _pair(name, *, layers=2, d_model=128, seed=0, **over):
@@ -143,7 +146,12 @@ def test_loss_and_every_gradient_leaf_match_jax_fp32(name):
     np.testing.assert_allclose(float(tl), jl, rtol=LOSS_RTOL)
     np.testing.assert_allclose(float(tmet["ce"]), float(jmet["ce"]),
                                rtol=LOSS_RTOL)
-    assert float(tmet["aux"]) == float(jmet["aux"]) == 0.0
+    if name == "grok-1-314b":
+        assert float(jmet["aux"]) > 0
+        np.testing.assert_allclose(float(tmet["aux"]), float(jmet["aux"]),
+                                   rtol=LOSS_RTOL)
+    else:
+        assert float(tmet["aux"]) == float(jmet["aux"]) == 0.0
     jleaves = jax.tree_util.tree_leaves(jg)
     tleaves = [x.double().numpy() for x in tree_leaves(tg)]
     assert len(jleaves) == len(tleaves)
@@ -176,7 +184,8 @@ def test_loss_and_gradients_match_jax_bf16(name):
         assert np.linalg.norm(a - b) <= BF16_GRAD_FRO * np.linalg.norm(b)
 
 
-@pytest.mark.parametrize("name", ["repro-100m", "rwkv6-1.6b", "zamba2-7b"])
+@pytest.mark.parametrize("name", ["repro-100m", "rwkv6-1.6b", "zamba2-7b",
+                                  "grok-1-314b"])
 def test_remat_gives_the_same_loss_and_gradients(name):
     cfg = dataclasses.replace(
         tconfigs.get_config(name).reduced(num_layers=2, d_model=128),
@@ -328,3 +337,15 @@ def test_train_cli_runs_and_restores_parameters_only(tmp_path, capsys):
                               second["restored"]),
                           _tb({"tokens": toks, "labels": labs}))
     assert float(loss5) == pytest.approx(second["losses"][5], abs=1e-4)
+
+
+def test_train_cli_takes_the_moe_aux_loss(capsys):
+    """``launch.train --arch grok-1-314b --smoke``: the MoE family trains
+    through the same step, its logged loss ce + aux."""
+    run = ttrain.main(["--arch", "grok-1-314b", "--smoke", "--batch", "2",
+                       "--seq", "32", "--steps", "3", "--log-every", "1",
+                       "--device", "cpu"])
+    assert run["cfg"].moe is not None
+    assert sorted(run["losses"]) == [1, 2, 3]
+    assert all(np.isfinite(v) for v in run["losses"].values())
+    assert "grok-1-314b-smoke" in capsys.readouterr().out
