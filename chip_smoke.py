@@ -72,12 +72,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
              default run (channel-drift, 8 devices, 5 rounds; a pool of
              8, one ``alpha_combine`` kernel a round), then device-churn
              at 16 devices for 3 rounds (4 spares, a pool of 20: two
-             kernels a round), counted; each round's phase walls from
+             kernels a round; cold solves at a quarter of the budget,
+             4 x 300 inner steps), counted; each round's phase walls from
              the trace fields, the solves' inner steps from the trace
              events; the kernel against its plain version on the last
              round's own transfer inputs (rtol/atol 1e-5).
 4d. sim-async — the simulator's async, drift and fault/resume paths
-             through the same CLI run (``--trace``), counted:
+             through the same CLI run (``--trace``), every cold solve
+             at a quarter of the budget (4 x 300 inner steps), counted:
              async-gossip (8 devices, the CLI's async defaults, 6
              ticks) and feature-drift-async (8 devices, 5 ticks), where
              no kernel of the port runs (every count stays 0); each
@@ -198,6 +200,21 @@ Phases, each of which raises on failure (the script then exits nonzero):
              version (1e-5) on the run's own inputs and timed beside
              ``matmul``; at least one target, unit alpha columns there,
              each target's error falling; the phase split.
+8. accounting — (run after 7d, before 6) (a) one call of each kernel op
+             (``torch.ops.repro_torch.*``) at its PERF.md §6 shape under
+             ``launch.hlo.StepCounter`` on the card: the counted FLOPs and
+             bytes give the table's bound within ACCT_BOUND_TOL, the call
+             launched its kernels; the op's device ms and host µs a call
+             against its raw C-entry launch.  (b) llama3.2-1b's prefill at
+             (4, 2048) on the kernel route, one decode step at batch 4 and
+             repro-100m's train step at (8, 512), each counted on the card
+             and through its bundle on ``meta`` (FLOPs equal exactly, bytes
+             within ACCT_BYTES_TOL), timed without the counter: TFLOP/s,
+             the roofline's compute and memory terms and their shares,
+             ``roofline.mfu``, peak memory beside the dry run's 1x1
+             argument bytes.  (c) ``python -m repro_torch.launch.dryrun``
+             for llama3.2-1b x the four input shapes at 16x16 on ``meta``,
+             in a child process started after the build: every record ok.
 6. checks  — the disagreement kernel on the trained models' predictions
              and the transfer against their plain versions, and the GPU
              against the port on the CPU at a small size (the ST-LF
@@ -216,8 +233,10 @@ run took.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -368,12 +387,14 @@ FADA_FEAT_TOL = 1e-5
 # the simulator's runs on the card: (scenario, devices, rounds); the
 # default run (8 devices, no spares: a pool of 8, the transfer's one
 # mma.sync kernel a round), then device-churn at 16 devices (4 spares: a
-# pool of 20, split + wgmma, two kernels a round)
-SIM_RUNS = [("channel-drift", 8, 5), ("device-churn", 16, 3)]
-SIM_TAGS = [f"{s}-n{n}-r{r}" for s, n, r in SIM_RUNS]
+# pool of 20, split + wgmma, two kernels a round), its cold solves at
+# QUARTER_SOLVER's budget: (scenario, devices, rounds, cut)
+SIM_RUNS = [("channel-drift", 8, 5, False), ("device-churn", 16, 3, True)]
+SIM_TAGS = [f"{s}-n{n}-r{r}" for s, n, r, _ in SIM_RUNS]
 # the simulator's async and drift runs on the card, through the CLI with
-# its defaults (8 devices, 100 samples, 30 SGD steps, solver 8 x 600 cold
-# / 150 warm, clocks (1, 2, 4), n_active // 4 gossip pairs): (scenario,
+# its defaults (8 devices, 100 samples, 30 SGD steps, solver 150 warm,
+# clocks (1, 2, 4), n_active // 4 gossip pairs) but QUARTER_SOLVER's cold
+# solves (4d's fault/resume runs too): (scenario,
 # engine, devices, ticks), ticks cut for the script's time limit (12 and
 # 8 ticks until phase 4e took its share)
 SIM_ASYNC_RUNS = [("async-gossip", "async-gossip", 8, 6),
@@ -392,13 +413,18 @@ SHARD_MESH = 4
 # defaults otherwise: (devices, rounds, the round after which the child
 # run is SIGKILLed)
 SHARD_FAULTY = (6, 4, 1)
-# phase 4e's cold solves at a quarter of the CLI's default budget (8 x
-# 600 inner steps): (solver_max_outer, solver_inner_steps), the warm
-# budget unchanged; the three pools of (1) still share one budget
-SHARD_SOLVER = (4, 300)
+# the cold solves of phase 4e, of 4d and of 4c's device-churn run at a
+# quarter of the CLI's default budget (8 x 600 inner steps), for the
+# script's time limit: (solver_max_outer, solver_inner_steps), the warm
+# budget unchanged; the three pools of 4e (1) still share one budget.
+# The CLI's default run (4c's first) keeps the whole budget
+QUARTER_SOLVER = (4, 300)
+QUARTER_ARGS = ["--solver-max-outer", str(QUARTER_SOLVER[0]),
+                "--solver-inner-steps", str(QUARTER_SOLVER[1])]
 SHARD_FAULTY_CFG = dict(scenario="faulty", mesh=2, fault_shard_p=0.7,
-                        fault_crash_p=0.0, solver_max_outer=SHARD_SOLVER[0],
-                        solver_inner_steps=SHARD_SOLVER[1])
+                        fault_crash_p=0.0,
+                        solver_max_outer=QUARTER_SOLVER[0],
+                        solver_inner_steps=QUARTER_SOLVER[1])
 # the pool's phases at simulator scale (no bootstrap, no solve), as
 # benchmarks/sim_scale.py's dry rows take them: pool size, the emulated
 # mesh timed beside mesh 1, and the Algorithm-1 batch's pairs
@@ -2452,6 +2478,371 @@ def phase_lm_clients(ac, counted, report):
     return res
 
 
+# phase 8, accounting: each kernel op's counted work against the bound
+# column of PERF.md §6 (within ACCT_BOUND_TOL), and three steps counted on
+# the card and on meta through their bundles.  The steps' FLOPs must be
+# equal exactly (the same ops on the same shapes); their bytes within
+# ACCT_BYTES_TOL: a count reads each op's operand and result sizes, which
+# follow shapes and dtypes, except where a real kernel lays its output out
+# otherwise than meta's shape function and a later reshape then copies on
+# one side only (the CPU's plain flash version did until its op returned
+# it contiguous: a clone of 0.66% of a reduced prefill's bytes; the CPU
+# and meta now agree exactly on all three steps)
+ACCT_BOUND_TOL = 0.01
+ACCT_BYTES_TOL = 1e-2
+# (batch, prompt) of the llama3.2-1b prefill on the kernel route; (batch,
+# cache slots, the decoded position) of one decode step; (batch, seq) of
+# phase 7's repro-100m train step
+ACCT_PREFILL = (4, 2048)
+ACCT_DECODE = (4, 2048, 64)
+ACCT_TRAIN = (8, 512)
+# the dry run's architecture, at the 16x16 mesh, the four input shapes
+ACCT_DRYRUN_ARCH = LM_ARCH
+
+
+def start_dryrun():
+    """The short dry run (phase 8c) in a child process on meta tensors,
+    started at the beginning of the run so that its ~40 s of host work
+    overlaps the card's phases: ``python -m repro_torch.launch.dryrun``
+    for ACCT_DRYRUN_ARCH x every input shape at 16x16."""
+    out = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    log_file = open(ROOT / "build" / "dryrun_smoke.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         ACCT_DRYRUN_ARCH, "--out", str(out)], cwd=ROOT, env=env,
+        stdout=log_file, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, log_file
+
+
+def _host_us(fn, calls=50):
+    """Host microseconds a call of ``fn`` (enqueue only: no synchronize
+    inside the loop), after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def _acct_ops(fa, ss, ac, dg):
+    """Each kernel at its PERF.md §6 shape: its public call (the wrapper:
+    checks, then the op), the op through the dispatcher alone, the op's
+    CUDA implementation called directly (allocation and launch), the raw
+    launch (the C entry with its arguments made once and its output and
+    scratch allocated once, and held in ``keep`` while the raw launch may
+    write them), the table's bound (ms, by), the peak rate of its type,
+    the counter it bumps and its kernels a call."""
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = []
+    # flash_attention (4, 2048, 32/8, 64), causal, bf16
+    b, s, h, kv, d = 4, 2048, 32, 8, 64
+    q = torch.randn(b, s, h, d, device=dev, generator=gen).bfloat16()
+    k = torch.randn(b, s, kv, d, device=dev, generator=gen).bfloat16()
+    v = torch.randn(b, s, kv, d, device=dev, generator=gen).bfloat16()
+    o = torch.empty_like(q)
+    launch = _build.entry("flash_attention", "flash_attention_fwd",
+                          fa._SIGNATURE)
+    fargs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
+             kv, s, s, d, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], *o.stride()[:3], 1, 0, 1.0 / d ** 0.5,
+             fa._DTYPES[q.dtype], stream)
+    table = bound((2 * q.numel() + k.numel() + v.numel()) * 2,
+                  4 * d * live_pairs(s, s, True, None) * b * h,
+                  PEAK_BF16_PER_S)
+    out.append(dict(
+        name="flash_attention", call=lambda: fa.flash_attention(q, k, v),
+        op=lambda: torch.ops.repro_torch.flash_attention(q, k, v, True,
+                                                          None),
+        impl=lambda: fa._flash_launch(q, k, v, True, None),
+        raw=lambda: launch(*fargs), table=table, peak=PEAK_BF16_PER_S,
+        counter=fa.flash_attention, kernels=1, keep=(o,)))
+    # ssm_scan (4, 2048, 32, 64) rwkv, bf16 r/k/v, fp32 log_w, chunk 128
+    x = ssm_inputs(4, 2048, 32, 64, "init", torch.bfloat16, gen)
+    q2, k2, v2, lw, bonus, s0 = x
+    b2, l2, h2, d2 = q2.shape
+    y = torch.empty_like(v2)
+    sf = torch.empty(b2, h2, d2, d2, device=dev)
+    u = bonus.float().contiguous()
+    s0f = s0.float().contiguous()
+    kernels, floats = ss._plan(b2, l2, h2, d2, d2, 128)
+    scratch = torch.empty(floats, device=dev)
+    slaunch = _build.entry("ssm_scan", "ssm_scan_fwd", ss._SIGNATURE)
+    sargs = (q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), lw.data_ptr(),
+             u.data_ptr(), s0f.data_ptr(), y.data_ptr(), sf.data_ptr(),
+             scratch.data_ptr(), b2, l2, h2, d2, d2, 128, 1,
+             *q2.stride()[:3], *k2.stride()[:3], *v2.stride()[:3],
+             *lw.stride()[:3], *y.stride()[:3],
+             *(ss._BF16[t.dtype] for t in (q2, k2, v2, lw)), stream)
+    table = bound(q2.numel() * (4 * q2.element_size() + 4)
+                  + 2 * 4 * b2 * h2 * d2 * d2,
+                  ssm_flops(b2, l2, h2, d2, d2, 128, "rwkv"),
+                  PEAK_TF32_PER_S)
+    out.append(dict(
+        name="ssm_scan", call=lambda: ss.gla_chunked(
+            q2, k2, v2, lw, chunk=128, variant="rwkv", bonus=bonus,
+            initial_state=s0),
+        op=lambda: torch.ops.repro_torch.gla_chunked(
+            q2, k2, v2, lw, 128, "rwkv", bonus, s0),
+        impl=lambda: ss._gla_launch(q2, k2, v2, lw, 128, "rwkv", bonus, s0),
+        raw=lambda: slaunch(*sargs), table=table, peak=PEAK_TF32_PER_S,
+        counter=ss.gla_chunked, kernels=kernels,
+        keep=(y, sf, u, s0f, scratch)))
+    # alpha_combine S = T = 256, P = 48,158
+    st, p = 256, 48158
+    theta = torch.randn(st, p, device=dev, generator=gen)
+    alpha = torch.rand(st, st, device=dev, generator=gen)
+    alpha /= alpha.sum(0, keepdim=True)
+    mixed = theta.new_empty((st, p))
+    n_ac, nbytes = ac._plan(st, st)
+    ac_scratch = theta.new_empty(nbytes, dtype=torch.uint8)
+    aargs = (theta.data_ptr(), alpha.data_ptr(), mixed.data_ptr(), st, st,
+             p, ac_scratch.data_ptr(), stream)
+    table = bound(4 * (st * p + st * st + st * p), 2 * st * st * p,
+                  PEAK_TF32_PER_S)
+    out.append(dict(
+        name="alpha_combine", call=lambda: ac.alpha_combine(theta, alpha),
+        op=lambda: torch.ops.repro_torch.alpha_combine(theta, alpha),
+        impl=lambda: ac._combine_launch(theta, alpha),
+        raw=lambda: ac._entry()(*aargs), table=table, peak=PEAK_TF32_PER_S,
+        counter=ac.alpha_combine, kernels=n_ac, keep=(mixed, ac_scratch)))
+    # disagreement_counts N = 256, M = 64,000
+    n, m = 256, 64000
+    preds = torch.randint(0, 10, (n, m), device=dev, generator=gen,
+                          dtype=torch.int32)
+    valid = torch.ones(m, device=dev)
+    counts = torch.empty(n, n, device=dev)
+    bn, cl = dg._plan(n, m, 0)
+    dargs = (preds.data_ptr(), valid.data_ptr(), counts.data_ptr(), n, m,
+             bn, cl, False, stream)
+    table = bound(4 * (n * m + m + n * n), 2 * n * n * m)
+    out.append(dict(
+        name="disagreement",
+        call=lambda: dg.disagreement_counts(preds, valid),
+        op=lambda: torch.ops.repro_torch.disagreement(preds, valid, False),
+        impl=lambda: dg._disagree_launch(preds, valid, False),
+        raw=lambda: dg._entry()(*dargs), table=table, peak=PEAK_FP32_PER_S,
+        counter=dg.disagreement_counts, kernels=1, keep=(counts,)))
+    return out
+
+
+def phase_acct_ops(fa, ss, ac, dg, report):
+    """8a: one call of each kernel op at its table shape under the step
+    counter on the card: the counted FLOPs and bytes give the table's
+    bound within ACCT_BOUND_TOL, and the call launched the kernel; then
+    the op against its raw C-entry launch, device ms and host µs a call,
+    the host µs split into the wrapper's checks, the dispatcher's share
+    and the implementation's allocation and launch."""
+    from repro_torch.launch.hlo import StepCounter
+    rows = {}
+    for k in _acct_ops(fa, ss, ac, dg):
+        name, counter, n_k, peak = k["name"], k["counter"], k["kernels"], \
+            k["peak"]
+        t_ms, t_by = k["table"]
+        before = counter.launches
+        with StepCounter() as c:
+            k["call"]()
+        torch.cuda.synchronize()
+        if counter.launches - before != n_k:
+            raise AssertionError(f"[accounting] {name}: the counted call "
+                                 f"launched {counter.launches - before} "
+                                 f"kernels, not {n_k}")
+        a = c.analysis()
+        c_ms, c_by = bound(a.hbm_bytes, a.flops, peak)
+        if c_by != t_by or abs(c_ms / t_ms - 1) > ACCT_BOUND_TOL:
+            raise AssertionError(f"[accounting] {name}: the count's bound "
+                                 f"{c_ms:.5f} ms ({c_by}) is not the "
+                                 f"table's {t_ms:.5f} ms ({t_by}) within "
+                                 f"{ACCT_BOUND_TOL:.0%}")
+        err = k["raw"]()
+        if err:
+            raise AssertionError(f"[accounting] {name}: raw launch error "
+                                 f"{err}")
+        row = dict(flops=a.flops, bytes=a.hbm_bytes, bound_ms=c_ms,
+                   bound_by=c_by, table_bound_ms=t_ms,
+                   op_ms=cuda_ms(k["call"], 20), raw_ms=cuda_ms(k["raw"], 20),
+                   **{f"{w}_host_us": _host_us(k[w])
+                      for w in ("call", "op", "impl", "raw")})
+        row["added_host_us"] = row["call_host_us"] - row["raw_host_us"]
+        rows[name] = row
+        log(f"[accounting] {name}: counted {a.flops:.6g} FLOPs, "
+            f"{a.hbm_bytes:.6g} bytes -> bound {c_ms:.4f} ms ({c_by}); "
+            f"table {t_ms:.4f} ms; op {row['op_ms']:.4f} ms vs raw launch "
+            f"{row['raw_ms']:.4f} ms on the device; host us a call: "
+            f"wrapper {row['call_host_us']:.1f}, the op alone "
+            f"{row['op_host_us']:.1f}, its CUDA implementation "
+            f"{row['impl_host_us']:.1f}, the raw launch "
+            f"{row['raw_host_us']:.1f} (the op's path adds "
+            f"{row['added_host_us']:.1f} us)")
+    report["accounting_ops"] = rows
+    return rows
+
+
+def _count_on(fn, *args):
+    from repro_torch.launch.hlo import StepCounter
+    with StepCounter() as c:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return c.analysis(), out
+
+
+def _acct_step(tag, cfg, shape, bundle, card_args, run, reps, smi,
+               counted):
+    """Count ``bundle.fn`` on the card (its kernel launches too) and on
+    meta, time ``run`` (the same step, no counter) ``reps`` times between
+    synchronizes, and put the two side by side with the roofline's terms
+    and mfu."""
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import resident_bytes
+    zero_counts(counted)
+    card, _ = _count_on(bundle.fn, *card_args)
+    launches = read_counts(counted)
+    meta, meta_out = _count_on(bundle.fn, *bundle.abstract_args)
+    if card.flops != meta.flops:
+        raise AssertionError(f"[accounting] {tag}: {card.flops} FLOPs "
+                             f"counted on the card, {meta.flops} on meta")
+    gap = abs(card.hbm_bytes - meta.hbm_bytes) / meta.hbm_bytes
+    if gap > ACCT_BYTES_TOL:
+        raise AssertionError(f"[accounting] {tag}: bytes {card.hbm_bytes} "
+                             f"on the card vs {meta.hbm_bytes} on meta "
+                             f"({gap:.2e} apart, bar {ACCT_BYTES_TOL})")
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = [_timed(run)[1] for _ in range(reps)]
+    sec = float(np.median(times))
+    peak_mem = torch.cuda.max_memory_allocated()
+    rl = roofline.derive_roofline(
+        cfg, shape, chips=1, hlo_flops_per_device=card.flops,
+        hlo_bytes_per_device=card.hbm_bytes, collective_bytes_per_device=0.0)
+    args_bytes = resident_bytes(bundle, meta_out)["argument_size_in_bytes"]
+    row = dict(flops=card.flops, bytes=card.hbm_bytes,
+               bytes_meta=meta.hbm_bytes, bytes_gap=gap, s=sec,
+               s_all=times, tflops_s=card.flops / sec / 1e12,
+               compute_s=rl.compute_s, memory_s=rl.memory_s,
+               compute_share=rl.compute_s / sec,
+               memory_share=rl.memory_s / sec, bound=rl.dominant,
+               model_flops=rl.model_flops,
+               mfu=roofline.mfu(cfg, shape, sec, 1),
+               max_memory_allocated=peak_mem, dryrun_argument_bytes=args_bytes,
+               launches=launches)
+    log(f"[accounting] {tag}: {card.flops:.6g} FLOPs counted on the card = "
+        f"{meta.flops:.6g} on meta; bytes {card.hbm_bytes:.6g} card vs "
+        f"{meta.hbm_bytes:.6g} meta ({gap:.1e} apart); {sec * 1e3:.3f} ms "
+        f"a step (median of {reps}), {row['tflops_s']:.2f} TFLOP/s; "
+        f"roofline compute {rl.compute_s * 1e3:.3f} ms "
+        f"({row['compute_share']:.1%} of the step), memory "
+        f"{rl.memory_s * 1e3:.3f} ms ({row['memory_share']:.1%}), bound by "
+        f"{rl.dominant}; mfu {row['mfu']:.4f} against 989 TFLOP/s; "
+        f"max_memory_allocated {peak_mem / 1e9:.3f} GB vs the dry run's "
+        f"1x1 argument bytes {args_bytes / 1e9:.3f} GB; {smi}")
+    return row
+
+
+def phase_accounting(counted, report, smi, dryrun):
+    """8b: three steps counted on the card and on meta, timed without the
+    counter; 8c: the dry run's records (started at the run's beginning)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.nn.sharding import RULE_SETS
+    from repro_torch.optim import adamw
+    dev = torch.device("cuda")
+    one = abstract_mesh((1, 1), ("data", "model"))
+    rules = RULE_SETS["default"]
+    out = {}
+    # the llama3.2-1b prefill on the kernel route
+    cfg = dataclasses.replace(get_config(LM_ARCH), attention_impl="kernel")
+    b, s = ACCT_PREFILL
+    shape = InputShape("prefill", s, b, "prefill")
+    bundle = tsteps.make_bundle(cfg, shape, one, rules)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                                     dtype=torch.int32)}
+    out["prefill"] = _acct_step(
+        f"{LM_ARCH} prefill {ACCT_PREFILL} (kernel route)", cfg, shape,
+        bundle, (params, batch), lambda: bundle.fn(params, batch), 5, smi,
+        counted)
+    if out["prefill"]["launches"]["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"[accounting] the counted prefill launched "
+                             f"{out['prefill']['launches']}")
+    # one decode step at batch 4
+    b, slots, pos = ACCT_DECODE
+    shape = InputShape("decode", slots, b, "decode")
+    bundle = tsteps.make_bundle(cfg, shape, one, rules)
+    cache = model.init_cache(b, slots, device=dev)
+    dbatch = {"token": torch.randint(0, cfg.vocab_size, (b, 1), device=dev,
+                                     dtype=torch.int32),
+              "pos": torch.full((b,), pos, device=dev, dtype=torch.int32)}
+    out["decode"] = _acct_step(
+        f"{LM_ARCH} decode step at batch {b} ({slots} cache slots)", cfg,
+        shape, bundle, (params, cache, dbatch),
+        lambda: bundle.fn(params, cache, dbatch), 20, smi, counted)
+    del params, cache
+    torch.cuda.empty_cache()
+    # phase 7's model: repro-100m, remat off at (8, 512) as launch.train
+    # turns it off, fp32 moments as launch.train keeps them
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat=False)
+    b, s = ACCT_TRAIN
+    shape = InputShape("train", s, b, "train")
+    bundle = tsteps.make_train_bundle(cfg, shape, one, rules,
+                                      opt_state_dtype=torch.float32)
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt_state = adamw(3e-4, weight_decay=0.1,
+                      state_dtype=torch.float32).init(params)
+    tbatch = {k: torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                               dtype=torch.int32)
+              for k in ("tokens", "labels")}
+    out["train"] = _acct_step(
+        f"{TRAIN_ARCH} train step {ACCT_TRAIN}", cfg, shape, bundle,
+        (params, opt_state, tbatch),
+        lambda: bundle.fn(params, opt_state, tbatch), 10, smi, counted)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    # 8c. the dry run on meta, every shape ok (long_500k by the ring cache)
+    proc, path, log_file = dryrun
+    rc = proc.wait(timeout=600)
+    log_file.close()
+    recs = {p.stem: json.loads(p.read_text())
+            for p in sorted(path.glob("*.json"))}
+    if rc != 0 or len(recs) != 4 \
+            or any(r["status"] != "ok" for r in recs.values()):
+        raise AssertionError(
+            f"[accounting] dry run exit {rc}, records "
+            f"{ {k: r['status'] for k, r in recs.items()} }: "
+            + (ROOT / "build" / "dryrun_smoke.log").read_text()[-2000:])
+    out["dryrun"] = {}
+    for tag, r in recs.items():
+        out["dryrun"][r["shape"]] = dict(
+            flops_per_device=r["hlo_flops_per_device"],
+            bytes_per_device=r["hlo_bytes_per_device"],
+            resident_bytes=r["hbm_resident_bytes"], fits=r["fits_hbm"],
+            dominant=r["roofline"]["dominant"], count_s=r["count_s"])
+        log(f"[accounting] dry run {tag}, reckoned on meta (not measured): "
+            f"{r['hlo_flops_per_device']:.4g} FLOPs and "
+            f"{r['hlo_bytes_per_device']:.4g} bytes a device (even split "
+            f"of {r['chips']}), resident {r['hbm_resident_bytes'] / 1e9:.3f}"
+            f" GB, dominant {r['roofline']['dominant']}; counted in "
+            f"{r['count_s']} s")
+    report["accounting"] = out
+    return out
+
+
 def phase_main_path(ac, dg, counted, report):
     """The paper pipeline at full size through the port's entry points;
     ``counted`` maps every kernel's name to its wrapper."""
@@ -2746,7 +3137,7 @@ def phase_sim(ac, counted, report, dev="cuda", runs=SIM_RUNS):
 
     out_dir = ROOT / "build" / "sim"
     out, engines = {}, {}
-    for scenario, n, rounds in runs:
+    for scenario, n, rounds, cut in runs:
         tag = f"{scenario}-n{n}-r{rounds}"
         log_path, trace_path = out_dir / f"{tag}.jsonl", \
             out_dir / f"{tag}.trace.jsonl"
@@ -2755,7 +3146,8 @@ def phase_sim(ac, counted, report, dev="cuda", runs=SIM_RUNS):
         eng, _ = sim_run.simulate([
             "--scenario", scenario, "--devices", str(n), "--rounds",
             str(rounds), "--out", str(log_path), "--trace-out",
-            str(trace_path), "--quiet", "--device", dev])
+            str(trace_path), "--quiet", "--device", dev]
+            + (QUARTER_ARGS if cut else []))
         wall = time.perf_counter() - t0
         launches = read_counts(counted)
         rows = read_jsonl(str(log_path))
@@ -2859,7 +3251,7 @@ def phase_sim_async(counted, report, dev="cuda", runs=SIM_ASYNC_RUNS):
         eng, _ = sim_run.simulate([
             "--scenario", scenario, "--engine", engine, "--devices", str(n),
             "--rounds", str(ticks), "--out", str(log_path), "--trace-out",
-            str(trace_path), "--quiet", "--device", dev])
+            str(trace_path), "--quiet", "--device", dev, *QUARTER_ARGS])
         wall = time.perf_counter() - t0
         launches = read_counts(counted)
         rows = read_jsonl(str(log_path))
@@ -3015,7 +3407,8 @@ def phase_sim_faulty(ac, counted, report, dev="cuda"):
     out_dir = ROOT / "build" / "sim"
     tag = f"faulty-n{n}-r{rounds}"
     base = ["--scenario", "faulty", "--devices", str(n), "--rounds",
-            str(rounds), "--trace", "--quiet", "--device", dev]
+            str(rounds), "--trace", "--quiet", "--device", dev,
+            *QUARTER_ARGS]
     straight_log, log_path = out_dir / f"{tag}.jsonl", \
         out_dir / f"{tag}-resumed.jsonl"
     ckpt, again = Path(f"{log_path}.ckpt"), out_dir / f"{tag}.again"
@@ -3179,8 +3572,7 @@ def phase_sim_shard(ac, counted, report, dev="cuda"):
         "--scenario", scenario, "--devices", str(n), "--rounds",
         str(rounds), "--mesh", "1", "--out",
         str(out_dir / f"{tag}-mesh1.jsonl"), "--trace", "--quiet",
-        "--solver-max-outer", str(SHARD_SOLVER[0]),
-        "--solver-inner-steps", str(SHARD_SOLVER[1]), "--device", dev])
+        *QUARTER_ARGS, "--device", dev])
     runs["mesh 1 (CLI)"] = (1, eng, rows, time.perf_counter() - t0,
                             read_counts(counted))
     for name, mesh in ((f"mesh {SHARD_MESH} (emulated)", SHARD_MESH),
@@ -3748,6 +4140,9 @@ def main() -> int:
     report["ssm_scan_tf32_mma"] = tf32
     log(f"[build] ssm_scan kernel SASS: TF32 MMA instructions {tf32}")
 
+    # 8c's dry run on meta, in a child process beside the card's phases
+    dryrun = start_dryrun()
+
     # 3. kernels against their plain versions
     rows = phase_kernels(ac, dg, report)
     rows["flash_attention"] = phase_flash(fa)
@@ -3810,6 +4205,13 @@ def main() -> int:
     lm_clients = phase_lm_clients(ac, counted, report)
     report["train_7_s"] = time.perf_counter() - t0
     log(f"[train] phase 7: {report['train_7_s']:.1f} s")
+    # 8. accounting: the kernel ops' counted work against their bounds,
+    # three steps counted on the card and on meta, the dry run's records
+    t0 = time.perf_counter()
+    acct_ops = phase_acct_ops(fa, ss, ac, dg, report)
+    phase_accounting(counted, report, smi, dryrun)
+    report["accounting_8_s"] = time.perf_counter() - t0
+    log(f"[accounting] phase 8: {report['accounting_8_s']:.1f} s")
     # each kernel's count from the path that runs it
     launches = dict(launches,
                     flash_attention=serve_launches["flash_attention"],
@@ -3863,6 +4265,7 @@ def main() -> int:
             library_ms=main["library_ms"]))
         if "device_us" in main:     # the CUDA kernels behind the wrapper
             kernels[-1]["cuda_kernels"] = main["device_us"]
+        kernels[-1]["accounting"] = acct_ops[name]   # 8a: counted work
         if name in by_path:         # every path and timed shape
             kernels[-1]["launches_by_path"] = by_path[name]
             kernels[-1]["shapes"] = [

@@ -13,6 +13,14 @@ targets (see the source's header).  The typed ``ctypes`` entry, and for
 each (S, T) how many kernels a call launches and how much scratch it
 needs (asked of the source, which lays the scratch out), are looked up
 once.
+
+The kernels are the opaque op ``torch.ops.repro_torch.alpha_combine``:
+its CUDA implementation launches them, its CPU implementation is the
+plain version, its fake implementation gives a ``meta`` trace their
+output, and its FLOP formula (``launch/hlo.py`` reads it) is the
+function's 2·S·T·P.  A CPU or ``meta`` call whose inputs require grad
+(with grad enabled) runs the differentiable plain version outside the
+op, and is counted as its matmul.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.nn.param import flatten_to_vector, unflatten_from_vector
@@ -64,28 +73,8 @@ def _ready(theta: torch.Tensor, alpha: torch.Tensor) -> bool:
             and theta.get_device() == alpha.get_device())
 
 
-def alpha_combine(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """theta (S, P), alpha (S, T) -> (T, P) float32.  CPU tensors take
-    the plain version; CUDA tensors must be contiguous float32 on one
-    device, and launch the kernels (``launches`` counts each kernel);
-    with grad enabled neither may require grad (no backward kernel)."""
-    if not _ready(theta, alpha):
-        if theta.dim() != 2 or alpha.dim() != 2 \
-                or theta.shape[0] != alpha.shape[0]:
-            raise ValueError(f"alpha_combine: theta {tuple(theta.shape)} "
-                             f"and alpha {tuple(alpha.shape)} must be "
-                             f"(S, P), (S, T)")
-        if not theta.is_cuda and not alpha.is_cuda:
-            return alpha_combine_plain(theta, alpha)
-        for name, t in (("theta", theta), ("alpha", alpha)):
-            if not t.is_cuda or t.device != theta.device:
-                raise ValueError(f"alpha_combine: {name} is on {t.device}; "
-                                 f"both inputs must be on one CUDA device")
-            if t.dtype != torch.float32 or not t.is_contiguous():
-                raise ValueError(f"alpha_combine: {name} must be contiguous "
-                                 f"float32, got {t.dtype}")
-    _build.refuse_grad("alpha_combine", "repro_torch.kernels."
-                       "alpha_combine.ops.alpha_combine_plain", theta, alpha)
+def _combine_launch(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """One call's kernels on checked CUDA inputs."""
     (s, p), t_ = theta.shape, alpha.shape[1]
     out = theta.new_empty((t_, p))
     if s == 0 or t_ == 0 or p == 0:
@@ -101,6 +90,58 @@ def alpha_combine(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
         _build.check("alpha_combine", err)
     alpha_combine.launches += launches
     return out
+
+
+@torch.library.custom_op("repro_torch::alpha_combine", mutates_args=(),
+                         device_types="cuda")
+def _combine_op(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    return _combine_launch(theta, alpha)
+
+
+@_combine_op.register_kernel("cpu")
+def _combine_cpu(theta, alpha):
+    return alpha_combine_plain(theta, alpha).contiguous()
+
+
+@_combine_op.register_fake
+def _combine_fake(theta, alpha):
+    return theta.new_empty((alpha.shape[1], theta.shape[1]),
+                           dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.alpha_combine)
+def _combine_flops(theta_shape, alpha_shape, *, out_shape=None,
+                   **kwargs) -> int:
+    return 2 * theta_shape[0] * alpha_shape[1] * theta_shape[1]
+
+
+def alpha_combine(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """theta (S, P), alpha (S, T) -> (T, P) float32.  CPU (and ``meta``)
+    tensors take the plain version (its shapes); CUDA tensors must be
+    contiguous float32 on one device, and launch the kernels
+    (``launches`` counts each kernel); with grad enabled neither may
+    require grad (no backward kernel)."""
+    if not _ready(theta, alpha):
+        if theta.dim() != 2 or alpha.dim() != 2 \
+                or theta.shape[0] != alpha.shape[0]:
+            raise ValueError(f"alpha_combine: theta {tuple(theta.shape)} "
+                             f"and alpha {tuple(alpha.shape)} must be "
+                             f"(S, P), (S, T)")
+        if not theta.is_cuda and not alpha.is_cuda:
+            if torch.is_grad_enabled() and (theta.requires_grad
+                                            or alpha.requires_grad):
+                return alpha_combine_plain(theta, alpha)
+            return _combine_op(theta, alpha)
+        for name, t in (("theta", theta), ("alpha", alpha)):
+            if not t.is_cuda or t.device != theta.device:
+                raise ValueError(f"alpha_combine: {name} is on {t.device}; "
+                                 f"both inputs must be on one CUDA device")
+            if t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"alpha_combine: {name} must be contiguous "
+                                 f"float32, got {t.dtype}")
+    _build.refuse_grad("alpha_combine", "repro_torch.kernels."
+                       "alpha_combine.ops.alpha_combine_plain", theta, alpha)
+    return _combine_op(theta, alpha)
 
 
 alpha_combine.launches = 0

@@ -13,6 +13,14 @@ call makes exactly one launch and allocates only its output:
 thread-block cluster (see the source's header).  The SM count, the
 card's cluster capacities, the tile and cluster sizes of a shape and the
 typed ``ctypes`` entry are looked up once, not per call.
+
+The kernel is the opaque op ``torch.ops.repro_torch.disagreement``
+(``normalize`` picks the raw counts or the normalized matrix): its CUDA
+implementation launches the kernel, its CPU implementation is the plain
+version, its fake implementation gives a ``meta`` trace the kernel's
+output, and its FLOP formula (``launch/hlo.py`` reads it) counts the
+function's 2·N²·M operations, a compare and a weighted add for each
+(i, j, m), as the kernel's bound does.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -105,12 +114,10 @@ def _entry():
     return _build.entry("disagreement", "disagreement_f32", _SIGNATURE)
 
 
-def _launch(preds: torch.Tensor, valid: Optional[torch.Tensor],
-            normalize: bool) -> torch.Tensor:
+def _disagree_launch(preds: torch.Tensor, valid: Optional[torch.Tensor],
+                     normalize: bool) -> torch.Tensor:
     """One launch on the current stream: preds (N, M) contiguous int32 and
     valid (M,) contiguous float32 or None, on one CUDA device."""
-    _build.refuse_grad("disagreement", "repro_torch.kernels.disagreement."
-                       "ops.disagreement_counts_plain", valid)
     n, m = preds.shape
     out = preds.new_empty((n, n), dtype=torch.float32)
     if n == 0 or m == 0:
@@ -126,6 +133,41 @@ def _launch(preds: torch.Tensor, valid: Optional[torch.Tensor],
         _build.check("disagreement", err)
     disagreement_counts.launches += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::disagreement", mutates_args=(),
+                         device_types="cuda")
+def _disagree_op(preds: torch.Tensor, valid: Optional[torch.Tensor],
+                 normalize: bool) -> torch.Tensor:
+    return _disagree_launch(preds, valid, normalize)
+
+
+@_disagree_op.register_kernel("cpu")
+def _disagree_cpu(preds, valid, normalize):
+    v = torch.ones(preds.shape[1]) if valid is None else valid.float()
+    counts = disagreement_counts_plain(preds, v)
+    return counts / torch.clamp(v.sum(), min=1.0) if normalize else counts
+
+
+@_disagree_op.register_fake
+def _disagree_fake(preds, valid, normalize):
+    n = preds.shape[0]
+    return preds.new_empty((n, n), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.disagreement)
+def _disagree_flops(preds_shape, valid_shape, normalize, *, out_shape=None,
+                    **kwargs) -> int:
+    n, m = preds_shape
+    return 2 * n * n * m
+
+
+def _launch(preds: torch.Tensor, valid: Optional[torch.Tensor],
+            normalize: bool) -> torch.Tensor:
+    """The kernel's op on inputs ``_ready`` took."""
+    _build.refuse_grad("disagreement", "repro_torch.kernels.disagreement."
+                       "ops.disagreement_counts_plain", valid)
+    return _disagree_op(preds, valid, normalize)
 
 
 def _ready(preds: torch.Tensor, valid: Optional[torch.Tensor]) -> bool:
@@ -167,6 +209,16 @@ def _on_cpu(preds: torch.Tensor, valid: Optional[torch.Tensor]) -> bool:
     return not preds.is_cuda and (valid is None or not valid.is_cuda)
 
 
+def _plain_or_op(preds: torch.Tensor, valid: Optional[torch.Tensor],
+                 normalize: bool) -> torch.Tensor:
+    """CPU (or ``meta``) inputs: the op's plain version, or outside the op
+    where a weight requires grad (the plain version is differentiable in
+    ``valid``)."""
+    if valid is not None and valid.requires_grad and torch.is_grad_enabled():
+        return _disagree_cpu(preds, valid, normalize)
+    return _disagree_op(preds, valid, normalize)
+
+
 def disagreement_counts(preds: torch.Tensor,
                         valid: torch.Tensor) -> torch.Tensor:
     """preds (N, M) int32, valid (M,) float32 -> raw counts (N, N)
@@ -177,7 +229,7 @@ def disagreement_counts(preds: torch.Tensor,
         return _launch(preds, valid, False)
     _check_shapes(preds, valid)
     if _on_cpu(preds, valid):
-        return disagreement_counts_plain(preds, valid)
+        return _plain_or_op(preds, valid, False)
     _refuse(preds, valid)
 
 
@@ -194,9 +246,8 @@ def disagreement(preds: torch.Tensor,
         return _launch(preds, valid, True)
     _check_shapes(preds, valid)
     if _on_cpu(preds, valid):
-        v = torch.ones(preds.shape[1]) if valid is None else valid.float()
-        return disagreement_counts_plain(preds, v) \
-            / torch.clamp(v.sum(), min=1.0)
+        return _plain_or_op(preds, None if valid is None else valid.float(),
+                            True)
     preds = preds.to(torch.int32).contiguous()
     if valid is not None:
         valid = valid.to(torch.float32).contiguous()

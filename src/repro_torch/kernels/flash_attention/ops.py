@@ -19,13 +19,24 @@ zero-fills the extra columns).  fp32 inputs take the SIMT kernel (fp32
 FMAs from shared memory).  Both keep the online softmax in registers and
 skip key tiles wholly outside a query tile's causal or window range (see
 the source's header).
+
+The kernel is the opaque op ``torch.ops.repro_torch.flash_attention``:
+its CUDA implementation launches the kernel, its CPU implementation is
+the plain version, its fake implementation gives a ``meta`` trace the
+kernel's output, and its FLOP formula (``launch/hlo.py`` reads it) is
+4·D per live (query, key) pair, so a count sees the attention once, by
+the work it needs.  A CPU or ``meta`` call whose inputs require grad
+(with grad enabled) runs the differentiable plain version outside the
+op, and is counted as its matmuls.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -97,36 +108,23 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention: window {window} must be >= 1")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q (B, Sq, H, D); k, v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype,
-    query i at absolute position i + Sk - Sq.  CPU tensors take the plain
-    version; CUDA tensors (float32 or bfloat16, one dtype, unit stride in
-    D, D in ``HEAD_DIMS``, on one device; bf16 also as ``check_staging``
-    says) launch the kernel; with grad enabled none may require grad."""
-    _check(q, k, v, window)
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} is on {t.device}; "
-                             f"all inputs must be on one CUDA device")
-        if t.dtype != q.dtype or t.dtype not in _DTYPES:
-            raise ValueError(f"flash_attention: {name} is {t.dtype}; q, k "
-                             f"and v must all be float32 or bfloat16")
-        if t.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name} needs unit stride "
-                             f"in D, got strides {t.stride()}")
-        if t.dtype == torch.bfloat16:
-            check_staging(name, t)
-    _build.refuse_grad("flash_attention", "repro_torch.kernels."
-                       "flash_attention.ops.flash_attention_plain", q, k, v)
+@functools.lru_cache(maxsize=None)
+def live_pairs(sq: int, sk: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs one (batch, head) keeps, query i at position
+    i + sk - sq."""
+    total = 0
+    for i in range(sk - sq, sk):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: Optional[int]) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA inputs."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in "
-                         f"{HEAD_DIMS}")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if b == 0 or sq == 0 or h == 0:
         return out
@@ -145,6 +143,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check("flash_attention", err)
     flash_attention.launches += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: Optional[int]) -> torch.Tensor:
+    return _flash_launch(q, k, v, causal, window)
+
+
+@_flash_op.register_kernel("cpu")
+def _flash_cpu(q, k, v, causal, window):
+    # contiguous, as the kernel writes it and the fake says: a later
+    # reshape then copies on no device
+    return flash_attention_plain(q, k, v, causal=causal,
+                                 window=window).contiguous()
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, *,
+                 out_shape=None, **kwargs) -> int:
+    b, sq, h, d = q_shape
+    return 4 * d * b * h * live_pairs(sq, k_shape[1], causal, window)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B, Sq, H, D); k, v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype,
+    query i at absolute position i + Sk - Sq.  CPU (and ``meta``)
+    tensors take the plain version (its shapes); CUDA tensors (float32 or
+    bfloat16, one dtype, unit stride in D, D in ``HEAD_DIMS``, on one
+    device; bf16 also as ``check_staging`` says) launch the kernel; with
+    grad enabled none may require grad."""
+    _check(q, k, v, window)
+    if all(t.device.type != "cuda" for t in (q, k, v)):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+        return _flash_op(q, k, v, causal, window)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}; "
+                             f"all inputs must be on one CUDA device")
+        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"flash_attention: {name} is {t.dtype}; q, k "
+                             f"and v must all be float32 or bfloat16")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} needs unit stride "
+                             f"in D, got strides {t.stride()}")
+        if t.dtype == torch.bfloat16:
+            check_staging(name, t)
+    _build.refuse_grad("flash_attention", "repro_torch.kernels."
+                       "flash_attention.ops.flash_attention_plain", q, k, v)
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {q.shape[3]} not in "
+                         f"{HEAD_DIMS}")
+    return _flash_op(q, k, v, causal, window)
 
 
 flash_attention.launches = 0

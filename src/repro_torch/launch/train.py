@@ -50,8 +50,8 @@ def main(argv=None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser(
         description="Train an LM of the port on the synthetic LMStream. "
                     "--devices and --model-axis (JAX's data- and model-"
-                    "parallel mesh) wait for the sharding slice "
-                    "(ROADMAP.md queue 1, item 6.7).")
+                    "parallel mesh) wait for execution on a mesh of cards "
+                    "(ROADMAP.md queue 1, item 6.8).")
     ap.add_argument("--arch", default="repro-100m")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)

@@ -1,8 +1,6 @@
 """Shared model machinery: spec stacking, chunked cross-entropy, base
-class.
-
-The port of ``repro.models.common``; the dry-run input specs belong to
-the HLO accounting (``ROADMAP.md`` queue 1, item 6.7).
+class (with the dry run's input specs): the port of
+``repro.models.common``.
 """
 from __future__ import annotations
 
@@ -12,7 +10,7 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn import param as P
 
@@ -127,3 +125,40 @@ class LMBase:
 
     def cache_specs(self, batch: int, max_len: int):
         raise NotImplementedError
+
+    # ---- dry-run inputs ----
+    def input_specs(self, shape: InputShape) -> Dict[str, Any]:
+        """``ShapeDtype`` stand-ins for every model input (``P.abstract``
+        makes ``meta`` tensors of them)."""
+        cfg = self.cfg
+        i32 = "int32"
+        if shape.kind == "train":
+            text = shape.seq_len - self._frontend_len()
+            d = {"tokens": P.ShapeDtype((shape.global_batch, text), i32),
+                 "labels": P.ShapeDtype((shape.global_batch, text), i32)}
+        elif shape.kind == "prefill":
+            text = shape.seq_len - self._frontend_len()
+            d = {"tokens": P.ShapeDtype((shape.global_batch, text), i32)}
+        else:  # decode
+            d = {"token": P.ShapeDtype((shape.global_batch, 1), i32),
+                 "pos": P.ShapeDtype((shape.global_batch,), i32)}
+            return d
+        fl = self._frontend_len()
+        if fl:
+            d["embeds"] = P.ShapeDtype(
+                (shape.global_batch, fl, cfg.frontend.embed_dim), "bfloat16")
+        return d
+
+    def _frontend_len(self) -> int:
+        fe = self.cfg.frontend
+        if fe.kind != "none" and self.cfg.encdec is None:
+            return fe.num_embeds
+        return 0
+
+    # window to use for a decode shape (ring-buffer cache for long ctx)
+    def decode_cache_len(self, shape: InputShape) -> int:
+        cfg = self.cfg
+        if cfg.sliding_window is not None and shape.seq_len > cfg.sliding_window \
+                and cfg.use_sliding_for_long and shape.name == "long_500k":
+            return cfg.sliding_window
+        return shape.seq_len

@@ -196,3 +196,21 @@ class EncDecModel(LMBase):
                                 cfg.mlp_activation, dt)
         h = rmsnorm(h, params["ln_f"], cfg.norm_eps)
         return unembed(h, params["unembed"]), cache
+
+    def input_specs(self, shape):
+        """The dry run's inputs: {"src_embeds", "tokens"[, "labels"]}, or
+        decode's {"token", "pos"} (its cross cache is in the cache)."""
+        cfg = self.cfg
+        i32 = "int32"
+        b = shape.global_batch
+        src = P.ShapeDtype((b, cfg.encdec.encoder_seq, cfg.d_model),
+                           "bfloat16")
+        if shape.kind == "train":
+            return {"src_embeds": src,
+                    "tokens": P.ShapeDtype((b, shape.seq_len), i32),
+                    "labels": P.ShapeDtype((b, shape.seq_len), i32)}
+        if shape.kind == "prefill":
+            return {"src_embeds": src,
+                    "tokens": P.ShapeDtype((b, shape.seq_len), i32)}
+        return {"token": P.ShapeDtype((b, 1), i32),
+                "pos": P.ShapeDtype((b,), i32)}

@@ -34,6 +34,31 @@ def is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """A model input's shape and dtype (``jax.ShapeDtypeStruct``'s
+    counterpart): what ``abstract`` turns into a ``meta`` tensor."""
+    shape: Tuple[int, ...]
+    dtype: str
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+def abstract(specs, device="meta"):
+    """Empty tensors of a tree (dicts and tuples) of ``ParamSpec`` or
+    ``ShapeDtype`` leaves, on ``device``: on ``meta`` (the default) they
+    hold shapes and dtypes only and allocate nothing (JAX's
+    ``abstract``, which gives ``ShapeDtypeStruct``s)."""
+    if isinstance(specs, dict):
+        return {k: abstract(v, device) for k, v in specs.items()}
+    if isinstance(specs, tuple):
+        return tuple(abstract(v, device) for v in specs)
+    return torch.empty(specs.shape, dtype=getattr(torch, specs.dtype),
+                       device=device)
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
     """One leaf, drawn on ``gen``'s device."""
     dtype = getattr(torch, spec.dtype)

@@ -801,3 +801,78 @@ def test_moe_and_vlm_prefill_go_through_the_flash_kernel(cuda, arch):
     out = model.prefill(params, {k: v.to(cuda) for k, v in batch.items()})
     assert fa.flash_attention.launches == before + cfg.num_layers
     torch.testing.assert_close(out.cpu(), cpu, atol=1e-4, rtol=1e-4)
+
+
+# the four kernels as opaque ops (``torch.ops.repro_torch.*``): on the
+# card each launches its kernel and matches its plain version at the bars
+# above; its fake implementation, which a trace on ``meta`` runs, gives
+# the CUDA output's shape, dtype and strides
+def _op_case(name, dev):
+    """(call, plain version, inputs on ``dev``, each output's bar (None:
+    exact), the counter the call bumps)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssm_scan import ops as ss
+    g = np.random.default_rng(3)
+
+    def t(size, dtype=torch.float32):
+        return torch.as_tensor(g.normal(size=size), dtype=dtype,
+                               device=dev)
+    bf16 = dict(atol=1e-5, rtol=2.0 ** -7)
+    if name == "flash_attention":
+        x = [t((2, 300, 8, 64), torch.bfloat16),
+             t((2, 300, 2, 64), torch.bfloat16),
+             t((2, 300, 2, 64), torch.bfloat16)]
+        return (lambda q, k, v: fa.flash_attention(q, k, v, window=100),
+                lambda q, k, v: fa.flash_attention_plain(q, k, v,
+                                                         window=100),
+                x, [bf16], fa.flash_attention)
+    if name == "gla_chunked":
+        x = [t((2, 300, 4, 64), torch.bfloat16) for _ in range(3)] \
+            + [-t((2, 300, 4, 64)).abs(), t((4, 64)), t((2, 4, 64, 64))]
+        return (lambda *a: ss.gla_chunked(*a[:4], chunk=128, variant="rwkv",
+                                          bonus=a[4], initial_state=a[5]),
+                lambda *a: ss.gla_chunked_plain(*a[:4], chunk=128,
+                                                variant="rwkv", bonus=a[4],
+                                                initial_state=a[5]),
+                x, [bf16, dict(atol=1e-5, rtol=1e-4)], ss.gla_chunked)
+    if name == "alpha_combine":
+        theta, alpha = _ac_inputs(70, 40, 3001)
+        return (ac.alpha_combine, ac.alpha_combine_plain,
+                [torch.as_tensor(theta, device=dev),
+                 torch.as_tensor(alpha, device=dev)],
+                [dict(rtol=1e-5, atol=1e-5)], ac.alpha_combine)
+    preds = torch.as_tensor(_preds(40, 130), device=dev)
+    valid = torch.ones(130, device=dev)
+    if name == "disagreement_counts":
+        return (dg.disagreement_counts, dg.disagreement_counts_plain,
+                [preds, valid], [None], dg.disagreement_counts)
+    return (dg.disagreement,
+            lambda p, v: dg.disagreement_counts_plain(p, v) / v.sum(),
+            [preds, valid], [None], dg.disagreement_counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "gla_chunked",
+                                  "alpha_combine", "disagreement_counts",
+                                  "disagreement"])
+def test_kernel_op_fake_matches_the_cuda_output(cuda, name):
+    call, plain, x, tols, counter = _op_case(name, cuda)
+    before = counter.launches
+    out = call(*x)
+    torch.cuda.synchronize()
+    assert counter.launches > before           # the kernel ran
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = plain(*x)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    for got, want, tol in zip(outs, refs, tols, strict=True):
+        if tol is None:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+    fake = call(*(a.to("meta") for a in x))
+    fakes = fake if isinstance(fake, tuple) else (fake,)
+    assert len(fakes) == len(outs)
+    for f, o in zip(fakes, outs):
+        assert f.device.type == "meta"
+        assert (f.shape, f.dtype, f.stride()) == (o.shape, o.dtype,
+                                                 o.stride())
