@@ -222,6 +222,32 @@ Phases, each of which raises on failure (the script then exits nonzero):
              channel-drift, device-churn, async-gossip and feature-drift,
              and the LM's and rwkv6's prefill and greedy tokens).
 
+9. mesh    — (run after 8) the dense decoder on a ('data', 'model')
+             ``DeviceMesh`` through the bundles on DTensor
+             (``launch.steps.on_mesh``).  9a, on every host: a world of
+             one rank under ``nccl`` in this process; llama3.2-1b at full
+             width, parameters drawn shard by shard on the mesh, its
+             MESH_PREFILL prefill on the kernel route (16
+             ``flash_attention`` launches through the op's sharding rule)
+             and MESH_DECODE decode steps at batch 4, against the same
+             calls without a mesh (bf16: LM_TOL, argmax equal; fp32
+             compute, the dot route too: MESH_F32_TOL); repro-100m's
+             MESH_TRAIN fp32 train steps against ``make_train_step`` (losses
+             within MESH_F32_TOL, each leaf's change within 1e-3 of its
+             norm); each time beside its time without a mesh; then two
+             gloo ranks on the one card (the outcome is recorded).  9b, on
+             two or more cards: llama3.2-1b on (1, k), (k, 1) and (2, 2)
+             against 9a (the parameters drawn equal, LM_TOL in bf16,
+             MESH_F32_TOL_SHARDED in fp32), repro-100m's steps on (1, k)
+             and (k, 1) and ``launch.train --devices k --model-axis m``;
+             tokens/s, ms a step, each card's peak memory.  9c, on four or
+             more cards: granite-34b at full width and depth on (1, 4),
+             the kernel route against dot (LM_TOL), decode steps, each
+             card's peak memory below 80 GB.  On a host with fewer cards
+             9b and 9c each print how many they need.
+             ``python3 chip_smoke.py --only-mesh`` builds the kernels and
+             runs phase 9 alone.
+
 ``python3 chip_smoke.py --profile`` adds a torch.profiler window over
 each phase (the device's busy share, top kernels; the ST-LF kernels'
 launches and device time a call) after phase 6.
@@ -333,6 +359,16 @@ TRAIN_MIN_DROP = 0.5
 # experts' changes far past it)
 TRAIN_CARD_CPU = ["repro-100m", "rwkv6-1.6b", "zamba2-7b", "grok-1-314b"]
 TRAIN_LR = 3e-4
+# phase 9, the mesh: llama3.2-1b's prefill (B, S) and decode steps at
+# batch B, repro-100m's train steps (steps, B, S); fp32 compute on a
+# one-rank mesh against no mesh, and on sharded meshes against the
+# one-rank mesh (sums split over the cards: another order); how long two
+# gloo ranks on one card may take; the model 9c runs on four cards
+MESH_PREFILL, MESH_DECODE, MESH_TRAIN = (4, 2048), 8, (3, 8, 512)
+MESH_F32_TOL = dict(atol=1e-6, rtol=1e-6)
+MESH_F32_TOL_SHARDED = dict(atol=1e-5, rtol=1e-5)
+MESH_GLOO_S = 30
+GRANITE_ARCH = "granite-34b"
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_DELTA_TOL = {"repro-100m": 1e-3, "rwkv6-1.6b": 5e-3,
                    "zamba2-7b": 5e-3, "grok-1-314b": 1e-3}
@@ -2270,7 +2306,8 @@ def phase_train(counted, report):
     shutil.rmtree(ckpt, ignore_errors=True)
     argv = ["--arch", TRAIN_ARCH, "--batch", str(b), "--seq", str(s),
             "--log-every", str(log_every), "--ckpt-dir", str(ckpt),
-            "--ckpt-every", str(every), "--device", "cuda"]
+            "--ckpt-every", str(every), "--devices", "1",
+            "--device", "cuda"]
     torch.cuda.empty_cache()
     live = torch.cuda.memory_allocated()      # earlier phases' tensors
     torch.cuda.reset_peak_memory_stats()
@@ -4089,6 +4126,425 @@ def phase_small_rwkv():
         f"GPU and CPU (max |dlogit| {diff:.3g}); greedy tokens equal")
 
 
+# ---------------------------------------------------------------- 9. mesh
+def _on_mesh(make, cfg, shape, dm):
+    """(bundle on the ``DeviceMesh`` ``dm``, its step on the mesh)."""
+    from repro_torch.launch import steps
+    from repro_torch.nn import sharding as shd
+    bundle = make(cfg, shape, dm, shd.DEFAULT_RULES)
+    return bundle, steps.on_mesh(bundle, dm)
+
+
+def _mesh_lm(arch, over, model_axis, prefill, decode_steps, routes,
+             baseline=False, seed=0):
+    """An LM's steps on the ('data', 'model') mesh of the world this
+    process is a rank of (``model_axis`` wide): parameters drawn shard
+    by shard on the mesh (``LMBase.init(mesh=...)`` from ``seed``); a
+    prefill of ``prefill`` (B, S) seeded tokens through each attention
+    route of ``routes`` via the prefill bundle on the mesh
+    (``steps.on_mesh``, a first call apart, the flash launches counted);
+    ``decode_steps`` decode steps at batch B through the decode bundle
+    (the prompt's first tokens fed in turn, the sharded cache updated in
+    place).  With ``baseline`` (a world of one) the same calls run
+    without a mesh on the gathered parameters.  Returns, on rank 0, the
+    gathered logits (CPU), the times, the launches and every card's peak
+    memory; None on the other ranks."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models.api import build_model
+    from repro_torch.nn import sharding as shd
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dm = mesh_lib.make_device_mesh(model_axis, device_type="cuda")
+    cfg = dataclasses.replace(get_config(arch), **over)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, init_s = _timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(seed), dev, mesh=dm,
+        rules=shd.DEFAULT_RULES))
+    b, s = prefill
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(seed + 1))
+    plain = shd.full(params) if baseline else None
+    out = dict(mesh=dict(zip(dm.mesh_dim_names, dm.shape)), init_s=init_s,
+               prefill={}, plain_prefill={})
+    for route in routes:
+        rcfg = dataclasses.replace(cfg, attention_impl=route)
+        _, run = _on_mesh(steps.make_prefill_bundle, rcfg,
+                          InputShape("mesh", s, b, "prefill"), dm)
+        run(params, {"tokens": toks})
+        before = fa.flash_attention.launches
+        logits, sec = _timed(lambda: run(params, {"tokens": toks}))
+        out["prefill"][route] = dict(
+            logits=shd.full(logits).float().cpu(), s=sec,
+            tok_per_s=b * s / sec,
+            launches=fa.flash_attention.launches - before)
+        del logits
+        if baseline:
+            ref = build_model(rcfg)
+            ref.prefill(plain, {"tokens": toks})
+            logits, sec = _timed(lambda: ref.prefill(plain, {"tokens": toks}))
+            out["plain_prefill"][route] = dict(logits=logits.float().cpu(),
+                                               s=sec, tok_per_s=b * s / sec)
+            del logits
+        torch.cuda.empty_cache()
+
+    def decode(step, cache):
+        logits, secs = [], []
+        for i in range(decode_steps):
+            lg, sec = _timed(lambda: step(cache, {
+                "token": toks[:, i:i + 1],
+                "pos": torch.full((b,), i, device=dev)}))
+            logits.append(shd.full(lg).float().cpu())
+            secs.append(sec)
+        return dict(logits=torch.stack(logits), s=secs,
+                    ms_per_step=sum(secs[1:]) / (len(secs) - 1) * 1e3,
+                    tok_per_s=b * (len(secs) - 1) / sum(secs[1:]))
+
+    # the cache as long as the prompt and the steps, its first slots fed
+    bundle, run = _on_mesh(steps.make_decode_bundle, cfg, InputShape(
+        "mesh", s + decode_steps, b, "decode"), dm)
+    cache = shd.distribute(model.init_cache(b, s + decode_steps,
+                                            device=dev),
+                           bundle.in_shardings[1], dm)
+    out["decode"] = decode(lambda c, bt: run(params, c, bt)[0], cache)
+    first = cache["k"].to_local()[:, :, 0]
+    if not bool(first.abs().sum() > 0):
+        raise AssertionError("the decode steps left the sharded cache "
+                             "empty: it was not updated in place")
+    del cache, first
+    if baseline:
+        cache = model.init_cache(b, s + decode_steps, device=dev)
+        out["plain_decode"] = decode(
+            lambda c, bt: model.decode_step(plain, c, bt)[0], cache)
+        del cache
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - live) / 1e9
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, out["peak_gb"])
+    out["peak_gb_by_card"] = peaks
+    del params, plain
+    torch.cuda.empty_cache()
+    return out if dist.get_rank() == 0 else None
+
+
+def _mesh_train(arch, model_axis, shape, n_steps, baseline=False, seed=0):
+    """``n_steps`` fp32-compute train steps of ``arch`` at ``shape`` (B, S)
+    through the train bundle on the mesh of this world (parameters drawn
+    on the mesh from ``seed``, fp32 moments), on the batches
+    ``_train_batch`` seeds 100, 101, ...; with ``baseline`` (a world of
+    one) the same steps through ``make_train_step`` without a mesh on the
+    gathered parameters.  Rank 0 returns the losses, the ms a step (the
+    first apart), the peak memory and the gathered parameters before and
+    after (CPU)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models.api import build_model
+    from repro_torch.nn import sharding as shd
+    from repro_torch.nn.param import tree_leaves
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dm = mesh_lib.make_device_mesh(model_axis, device_type="cuda")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              remat=False)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), dev,
+                        mesh=dm, rules=shd.DEFAULT_RULES)
+    b, s = shape
+    batches = [_train_batch(cfg.vocab_size, b, s, 100 + i)
+               for i in range(n_steps)]
+    opt = adamw(TRAIN_LR, weight_decay=0.1, state_dtype=torch.float32)
+    init = [t.cpu() for t in tree_leaves(shd.full(params))]
+
+    def run(step, p):
+        st, losses, secs = opt.init(p), [], []
+        for bt in batches:
+            (p, st, loss, _), sec = _timed(lambda: step(p, st, bt))
+            losses.append(float(shd.full(loss)))
+            secs.append(sec)
+        return dict(losses=losses,
+                    ms_per_step=sum(secs[1:]) / (len(secs) - 1) * 1e3,
+                    params=[t.cpu() for t in tree_leaves(shd.full(p))])
+
+    _, step = _on_mesh(lambda *a: steps.make_train_bundle(
+        *a, lr=TRAIN_LR, opt_state_dtype=torch.float32), cfg,
+        InputShape("mesh", s, b, "train"), dm)
+    out = dict(mesh=dict(zip(dm.mesh_dim_names, dm.shape)), init=init,
+               mesh_run=run(step, params))
+    if baseline:
+        out["plain_run"] = run(steps.make_train_step(
+            cfg, lr=TRAIN_LR, opt_state_dtype=torch.float32),
+            shd.full(params))
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - live) / 1e9
+    del params
+    torch.cuda.empty_cache()
+    return out if dist.get_rank() == 0 else None
+
+
+def _steps_apart(a, b, init):
+    """Two train runs compared: the largest relative loss gap, and each
+    leaf's change apart over its change's norm (the largest leaf)."""
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                      b["losses"]))
+    delta_rel = max(float(((x - p0) - (y - p0)).norm()
+                          / (y - p0).norm().clamp_min(1e-30))
+                    for x, y, p0 in zip(a["params"], b["params"], init))
+    return loss_rel, delta_rel
+
+
+def _hold(a, b, what, **tol):
+    """Raise unless two logit tensors agree within ``tol`` with equal
+    argmax in every row; returns the max abs difference."""
+    diff = float((a - b).abs().max())
+    if not (torch.isfinite(a).all() and torch.allclose(a, b, **tol)
+            and torch.equal(a.argmax(-1), b.argmax(-1))):
+        raise AssertionError(f"{what}: max |dlogit| {diff:.4g} beyond "
+                             f"{tol} or the argmax differs")
+    return diff
+
+
+def _gloo_one_card(world):
+    """A rank of ``world`` gloo ranks that all use cuda:0: one DTensor
+    all-gather of a (1, world)-sharded tensor on the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+    dm = init_device_mesh("cuda", (1, world),
+                          mesh_dim_names=("data", "model"))
+    x = distribute_tensor(torch.arange(8.0, device="cuda")[None]
+                          .expand(4, 8).contiguous(), dm,
+                          [Shard(0), Shard(1)], src_data_rank=None)
+    return float(x.full_tensor().sum()) if dist.get_rank() == 0 else None
+
+
+def phase_mesh(counted, report):
+    """9a on every host: a world of one rank under ``nccl`` in this
+    process; llama3.2-1b at full width, its (4, 2048) prefill on the
+    kernel route (and on dot in fp32 compute) and 8 decode steps at batch
+    4 through the bundles on the (1, 1) mesh, against the same calls
+    without a mesh (bf16: LM_TOL and equal argmax; fp32 compute within
+    MESH_F32_TOL), ``flash_attention`` once a layer a prefill through the
+    op's sharding rule; repro-100m's 3 fp32 train steps at (8, 512) on
+    the mesh against ``make_train_step``; the time of each beside its time
+    without a mesh.  Then two gloo ranks on the one card.  9b, on 2 or
+    more cards: llama3.2-1b on (1, k), (k, 1) and (2, 2) against 9a
+    (LM_TOL in bf16, MESH_F32_TOL_SHARDED in fp32) and repro-100m's steps
+    on (1, k) and ``launch.train --devices k --model-axis m``.  9c, on 4
+    or more cards: granite-34b at full width and depth on (1, 4)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+
+    fa = counted["flash_attention"]
+    cards = torch.cuda.device_count()
+    out = {"cards": cards}
+    b, s = MESH_PREFILL
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv",
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        try:
+            zero_counts(counted)
+            bf16 = _mesh_lm(LM_ARCH, {}, 1, MESH_PREFILL, MESH_DECODE,
+                            ("kernel",), baseline=True)
+            launches = read_counts(counted)
+            f32 = _mesh_lm(LM_ARCH, {"dtype": "float32"}, 1, MESH_PREFILL,
+                           MESH_DECODE, ("kernel", "dot"), baseline=True)
+            tr = _mesh_train(TRAIN_ARCH, 1, MESH_TRAIN[1:], MESH_TRAIN[0],
+                             baseline=True)
+        finally:
+            dist.destroy_process_group()
+    k = bf16["prefill"]["kernel"]
+    if k["launches"] != get_config(LM_ARCH).num_layers:
+        raise AssertionError(f"the mesh prefill launched flash_attention "
+                             f"{k['launches']} times, not once a layer")
+    a9 = dict(mesh=bf16["mesh"], launches_bf16_runs=launches,
+              flash_launches_a_prefill=k["launches"])
+    a9["bf16_prefill_dlogit"] = _hold(
+        k["logits"], bf16["plain_prefill"]["kernel"]["logits"],
+        "9a bf16 prefill, mesh vs none", **LM_TOL)
+    a9["bf16_decode_dlogit"] = _hold(
+        bf16["decode"]["logits"], bf16["plain_decode"]["logits"],
+        "9a bf16 decode, mesh vs none", **LM_TOL)
+    for route in ("kernel", "dot"):
+        a9[f"f32_prefill_{route}_dlogit"] = _hold(
+            f32["prefill"][route]["logits"],
+            f32["plain_prefill"][route]["logits"],
+            f"9a fp32 prefill ({route}), mesh vs none", **MESH_F32_TOL)
+    a9["f32_decode_dlogit"] = _hold(
+        f32["decode"]["logits"], f32["plain_decode"]["logits"],
+        "9a fp32 decode, mesh vs none", **MESH_F32_TOL)
+    loss_rel, delta_rel = _steps_apart(tr["mesh_run"], tr["plain_run"],
+                                       tr["init"])
+    if loss_rel > MESH_F32_TOL["rtol"] or delta_rel > 1e-3:
+        raise AssertionError(f"9a train steps, mesh vs none: losses "
+                             f"{loss_rel:.3g} apart, changes {delta_rel:.3g}")
+    a9.update(
+        prefill_s=k["s"], plain_prefill_s=bf16["plain_prefill"]["kernel"]["s"],
+        prefill_tok_per_s=k["tok_per_s"],
+        decode_ms=bf16["decode"]["ms_per_step"],
+        plain_decode_ms=bf16["plain_decode"]["ms_per_step"],
+        f32_prefill_s={r: (f32["prefill"][r]["s"],
+                           f32["plain_prefill"][r]["s"])
+                       for r in ("kernel", "dot")},
+        train_ms=tr["mesh_run"]["ms_per_step"],
+        plain_train_ms=tr["plain_run"]["ms_per_step"],
+        train_loss_rel=loss_rel, train_delta_rel=delta_rel,
+        train_losses=tr["mesh_run"]["losses"], peak_gb=bf16["peak_gb"])
+    log(f"[mesh] 9a {LM_ARCH} on {bf16['mesh']} (nccl, one rank): prefill "
+        f"{MESH_PREFILL} kernel route {k['s'] * 1e3:.1f} ms on the mesh vs "
+        f"{a9['plain_prefill_s'] * 1e3:.1f} ms without ({k['launches']} "
+        f"flash launches through the sharding rule); decode "
+        f"{a9['decode_ms']:.2f} vs {a9['plain_decode_ms']:.2f} ms a step; "
+        f"max |dlogit| bf16 {a9['bf16_prefill_dlogit']:.3g} / "
+        f"{a9['bf16_decode_dlogit']:.3g}, fp32 kernel "
+        f"{a9['f32_prefill_kernel_dlogit']:.3g}, dot "
+        f"{a9['f32_prefill_dot_dlogit']:.3g}, decode "
+        f"{a9['f32_decode_dlogit']:.3g}")
+    log(f"[mesh] 9a {TRAIN_ARCH} fp32 train {MESH_TRAIN[1:]}: "
+        f"{a9['train_ms']:.1f} ms a step on the mesh vs "
+        f"{a9['plain_train_ms']:.1f} without; losses {loss_rel:.3g} apart, "
+        f"changes {delta_rel:.3g}")
+    # two gloo ranks on the one card
+    try:
+        got = mesh_lib.launch(_gloo_one_card, 2, device_type="cuda",
+                              args=(2,), backend="gloo",
+                              timeout=MESH_GLOO_S)[0]
+        a9["gloo_two_ranks_one_card"] = f"ran: sum {got}"
+    except RuntimeError as e:
+        lines = [ln for ln in str(e).splitlines() if ln.strip()]
+        a9["gloo_two_ranks_one_card"] = (lines[0] + " ... "
+                                         + lines[-1])[:400]
+    log(f"[mesh] 9a two gloo ranks on one card: "
+        f"{a9['gloo_two_ranks_one_card']}")
+    a9["s"] = time.perf_counter() - t0
+    out["9a"] = a9
+    out["launches"] = {f"{LM_ARCH} prefill {MESH_PREFILL} on (1, 1)":
+                       k["launches"]}
+
+    # 9b: two or more cards
+    if cards < 2:
+        log(f"[mesh] 9b needs 2 or more cards; this host has {cards}")
+    else:
+        kk = min(cards, 4)
+        b9 = {}
+        for d, m in [(1, kk), (kk, 1)] + ([(2, 2)] if cards >= 4 else []):
+            for tag, over, ref, tol in (
+                    ("bf16", {}, bf16, LM_TOL),
+                    ("f32", {"dtype": "float32"}, f32,
+                     MESH_F32_TOL_SHARDED)):
+                r = mesh_lib.launch(
+                    _mesh_lm, d * m, device_type="cuda", timeout=900,
+                    args=(LM_ARCH, over, m, MESH_PREFILL, MESH_DECODE,
+                          ("kernel",)))[0]
+                rk = r["prefill"]["kernel"]
+                row = dict(
+                    prefill_dlogit=_hold(rk["logits"],
+                                         ref["prefill"]["kernel"]["logits"],
+                                         f"9b {tag} prefill on {(d, m)}",
+                                         **tol),
+                    decode_dlogit=_hold(r["decode"]["logits"],
+                                        ref["decode"]["logits"],
+                                        f"9b {tag} decode on {(d, m)}",
+                                        **tol),
+                    prefill_s=rk["s"], prefill_tok_per_s=rk["tok_per_s"],
+                    launches_rank0=rk["launches"],
+                    decode_ms=r["decode"]["ms_per_step"],
+                    decode_tok_per_s=r["decode"]["tok_per_s"],
+                    peak_gb_by_card=r["peak_gb_by_card"])
+                b9[f"{LM_ARCH} {tag} {(d, m)}"] = row
+                out["launches"][f"{LM_ARCH} prefill {MESH_PREFILL} on "
+                                f"{(d, m)}, rank 0"] = rk["launches"]
+                log(f"[mesh] 9b {LM_ARCH} {tag} on {(d, m)}: prefill "
+                    f"{rk['s'] * 1e3:.1f} ms ({rk['tok_per_s']:,.0f} "
+                    f"tokens/s, {rk['launches']} launches on rank 0), decode "
+                    f"{row['decode_ms']:.2f} ms a step; vs 9a max |dlogit| "
+                    f"{row['prefill_dlogit']:.3g} / {row['decode_dlogit']:.3g};"
+                    f" peak GB by card {[round(p, 2) for p in r['peak_gb_by_card']]}")
+        for d, m in [(1, kk), (kk, 1)]:
+            r = mesh_lib.launch(_mesh_train, d * m, device_type="cuda",
+                                timeout=900,
+                                args=(TRAIN_ARCH, m, MESH_TRAIN[1:],
+                                      MESH_TRAIN[0]))[0]
+            if not all(torch.equal(x, y) for x, y in zip(r["init"],
+                                                         tr["init"])):
+                raise AssertionError(f"9b: the parameters drawn on {(d, m)} "
+                                     f"differ from those drawn on (1, 1)")
+            loss_rel, delta_rel = _steps_apart(r["mesh_run"], tr["mesh_run"],
+                                               tr["init"])
+            if loss_rel > MESH_F32_TOL_SHARDED["rtol"] or delta_rel > 1e-3:
+                raise AssertionError(f"9b train on {(d, m)}: losses "
+                                     f"{loss_rel:.3g} apart, changes "
+                                     f"{delta_rel:.3g}")
+            run = train.main(["--arch", TRAIN_ARCH, "--devices", str(d * m),
+                              "--model-axis", str(m), "--steps",
+                              str(MESH_TRAIN[0] + 2), "--batch",
+                              str(MESH_TRAIN[1]), "--seq", str(MESH_TRAIN[2]),
+                              "--log-every", "1", "--device", "cuda"])
+            b9[f"{TRAIN_ARCH} train {(d, m)}"] = dict(
+                loss_rel=loss_rel, delta_rel=delta_rel,
+                ms_per_step=r["mesh_run"]["ms_per_step"],
+                peak_gb=r["peak_gb"], cli_losses=run["losses"],
+                cli_ms_per_step=run["step_s"] * 1e3,
+                cli_tok_per_s=MESH_TRAIN[1] * MESH_TRAIN[2] / run["step_s"])
+            log(f"[mesh] 9b {TRAIN_ARCH} fp32 train on {(d, m)}: "
+                f"{r['mesh_run']['ms_per_step']:.1f} ms a step, vs 9a losses "
+                f"{loss_rel:.3g} apart, changes {delta_rel:.3g}; launch.train "
+                f"--devices {d * m} --model-axis {m}: "
+                f"{run['step_s'] * 1e3:.1f} ms a step (bf16), losses "
+                f"{run['losses']}")
+        out["9b"] = b9
+
+    # 9c: four or more cards
+    if cards < 4:
+        log(f"[mesh] 9c needs 4 or more cards; this host has {cards}")
+    else:
+        r = mesh_lib.launch(_mesh_lm, 4, device_type="cuda", timeout=1500,
+                            args=(GRANITE_ARCH, {}, 4, MESH_PREFILL,
+                                  MESH_DECODE, ("kernel", "dot")))[0]
+        rk, rd = r["prefill"]["kernel"], r["prefill"]["dot"]
+        c9 = dict(mesh=r["mesh"], init_s=r["init_s"],
+                  kernel_vs_dot=_hold(rk["logits"], rd["logits"],
+                                      "9c granite prefill kernel vs dot",
+                                      **LM_TOL),
+                  prefill_s=rk["s"], prefill_tok_per_s=rk["tok_per_s"],
+                  dot_s=rd["s"], launches_rank0=rk["launches"],
+                  decode_ms=r["decode"]["ms_per_step"],
+                  decode_tok_per_s=r["decode"]["tok_per_s"],
+                  peak_gb_by_card=r["peak_gb_by_card"])
+        if max(r["peak_gb_by_card"]) >= 80:
+            raise AssertionError(f"9c: peak memory by card "
+                                 f"{r['peak_gb_by_card']} GB")
+        out["launches"][f"{GRANITE_ARCH} prefill {MESH_PREFILL} on (1, 4), "
+                        f"rank 0"] = rk["launches"]
+        log(f"[mesh] 9c {GRANITE_ARCH} on (1, 4): init {r['init_s']:.1f} s; "
+            f"prefill {MESH_PREFILL} kernel {rk['s']:.3f} s "
+            f"({rk['tok_per_s']:,.0f} tokens/s, {rk['launches']} launches "
+            f"on rank 0) vs dot {rd['s']:.3f} s, max |dlogit| "
+            f"{c9['kernel_vs_dot']:.3g}; decode {c9['decode_ms']:.1f} ms a "
+            f"step ({c9['decode_tok_per_s']:.1f} tokens/s); peak GB by card "
+            f"{[round(p, 2) for p in r['peak_gb_by_card']]}")
+        out["9c"] = c9
+    report["mesh"] = out
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4140,6 +4596,15 @@ def main() -> int:
     report["ssm_scan_tf32_mma"] = tf32
     log(f"[build] ssm_scan kernel SASS: TF32 MMA instructions {tf32}")
 
+    if "--only-mesh" in sys.argv[1:]:
+        # phase 9 alone (a development run on a host with several cards)
+        phase_mesh(counted, report)
+        log("[report] " + json.dumps(report))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     # 8c's dry run on meta, in a child process beside the card's phases
     dryrun = start_dryrun()
 
@@ -4212,6 +4677,12 @@ def main() -> int:
     phase_accounting(counted, report, smi, dryrun)
     report["accounting_8_s"] = time.perf_counter() - t0
     log(f"[accounting] phase 8: {report['accounting_8_s']:.1f} s")
+    # 9. the mesh: the dense decoder's steps on DTensor (9a on one card,
+    # 9b and 9c where the host has more)
+    t0 = time.perf_counter()
+    mesh = phase_mesh(counted, report)
+    report["mesh_9_s"] = time.perf_counter() - t0
+    log(f"[mesh] phase 9: {report['mesh_9_s']:.1f} s")
     # each kernel's count from the path that runs it
     launches = dict(launches,
                     flash_attention=serve_launches["flash_attention"],
@@ -4230,7 +4701,8 @@ def main() -> int:
             f"{VLM_ARCH} prefills {PREFILLS} (256 frontend rows + text)":
                 vlm["launches"]["flash_attention"],
             f"{TRAIN_ARCH} loss under no_grad {TRAIN_RUN[1:3]} (a check)":
-                train_out["kernel_route"]["launches"]["flash_attention"]},
+                train_out["kernel_route"]["launches"]["flash_attention"],
+            **{f"mesh: {path}": n for path, n in mesh["launches"].items()}},
         "ssm_scan": {
             f"{RWKV_ARCH} prefills {RWKV_PREFILLS}": rwkv_launches["ssm_scan"],
             f"{ZAMBA_ARCH} prefills {PREFILLS}":

@@ -28,6 +28,20 @@ kernel's output, and its FLOP formula (``launch/hlo.py`` reads it) is
 the work it needs.  A CPU or ``meta`` call whose inputs require grad
 (with grad enabled) runs the differentiable plain version outside the
 op, and is counted as its matmuls.
+
+On a mesh the op takes DTensors through its DTensor sharding rule
+(``_flash_sharding``): each rank runs the same kernel (the plain version
+on the CPU) on its own shard, which DTensor picks among the layouts the
+rule offers.  Batch may be split on any mesh dim.  Heads may be split
+only where every local query head still reads its own KV head: JAX
+repeats K/V to the query heads before its kernel
+(``src/repro/nn/attention.py:136-139``), while this kernel takes GQA
+directly and maps local query head j to local KV head j // (H/KV) of the
+shard it is given.  That holds when both head counts split evenly (H
+and KV divisible by every split the mesh can make) and when K/V have one
+head (MQA, K/V then replicated); any other layout gets its heads
+replicated.  The launch counter counts each rank's own launches, and
+the fake and the FLOP formula see the local shapes.
 """
 from __future__ import annotations
 
@@ -35,7 +49,11 @@ import ctypes
 import functools
 from typing import Optional
 
+import math
+
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
@@ -145,10 +163,33 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What the kernel needs of the CUDA tensors it is given (on a mesh,
+    a rank's shards): one device, one dtype of float32 or bfloat16, unit
+    stride in D, D in ``HEAD_DIMS``, bf16 also as ``check_staging``
+    says."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}; "
+                             f"all inputs must be on one CUDA device")
+        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"flash_attention: {name} is {t.dtype}; q, k "
+                             f"and v must all be float32 or bfloat16")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} needs unit stride "
+                             f"in D, got strides {t.stride()}")
+        if t.dtype == torch.bfloat16:
+            check_staging(name, t)
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {q.shape[3]} not in "
+                         f"{HEAD_DIMS}")
+
+
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cuda")
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, window: Optional[int]) -> torch.Tensor:
+    _check_cuda(q, k, v)
     return _flash_launch(q, k, v, causal, window)
 
 
@@ -163,6 +204,31 @@ def _flash_cpu(q, k, v, causal, window):
 @_flash_op.register_fake
 def _flash_fake(q, k, v, causal, window):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def heads_split_ok(num_heads: int, num_kv_heads: int, split: int) -> bool:
+    """Whether heads split ``split`` ways (every split a mesh of that
+    many devices can make divides it) keep each local query head on its
+    own KV head: both counts divide, or K/V have one head."""
+    return num_heads % split == 0 and (num_kv_heads == 1
+                                       or num_kv_heads % split == 0)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention.default)
+def _flash_sharding(q, k, v, causal, window):
+    """The layouts, one mesh dim at a time, in which each rank's kernel
+    call on its shards computes its shard of the output: all replicated;
+    batch split (dim 0 of all four); heads split (dim 2), offered only
+    where ``heads_split_ok`` holds for the whole mesh's size, with K/V
+    replicated when they have one head."""
+    strategies = [([Replicate()], [Replicate(), Replicate(), Replicate(),
+                                   None, None]),
+                  ([Shard(0)], [Shard(0), Shard(0), Shard(0), None, None])]
+    h, kv = q.shape[2], k.shape[2]
+    if heads_split_ok(h, kv, math.prod(q.mesh.shape)):
+        kvp = Replicate() if kv == 1 else Shard(2)
+        strategies.append(([Shard(2)], [Shard(2), kvp, kvp, None, None]))
+    return strategies
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
@@ -180,7 +246,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensors take the plain version (its shapes); CUDA tensors (float32 or
     bfloat16, one dtype, unit stride in D, D in ``HEAD_DIMS``, on one
     device; bf16 also as ``check_staging`` says) launch the kernel; with
-    grad enabled none may require grad."""
+    grad enabled none may require grad.  DTensors (on a mesh) go through
+    the op's sharding rule, and the checks apply to each rank's shards."""
     _check(q, k, v, window)
     if all(t.device.type != "cuda" for t in (q, k, v)):
         if torch.is_grad_enabled() and any(t.requires_grad
@@ -188,23 +255,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             return flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
         return _flash_op(q, k, v, causal, window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} is on {t.device}; "
-                             f"all inputs must be on one CUDA device")
-        if t.dtype != q.dtype or t.dtype not in _DTYPES:
-            raise ValueError(f"flash_attention: {name} is {t.dtype}; q, k "
-                             f"and v must all be float32 or bfloat16")
-        if t.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name} needs unit stride "
-                             f"in D, got strides {t.stride()}")
-        if t.dtype == torch.bfloat16:
-            check_staging(name, t)
     _build.refuse_grad("flash_attention", "repro_torch.kernels."
                        "flash_attention.ops.flash_attention_plain", q, k, v)
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {q.shape[3]} not in "
-                         f"{HEAD_DIMS}")
     return _flash_op(q, k, v, causal, window)
 
 

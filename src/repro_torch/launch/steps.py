@@ -5,10 +5,16 @@ A ``StepBundle`` holds a plain torch step (``fn``), ``meta`` tensors that
 stand in for its arguments (``abstract_args``: shapes and dtypes, no
 storage), the ``NamedSharding`` trees of its inputs and outputs
 (``nn/sharding``), and ``donate_argnums``, the arguments whose storage
-the step's outputs may reuse.  The port runs no partitioner: the
-shardings say what each device would hold on a mesh, which is what the
-dry run reckons (``launch/dryrun.py``); running a step on a mesh of
-cards is ``ROADMAP.md`` queue 1, item 6.8.
+the step's outputs may reuse.
+
+A bundle made on an abstract mesh (``launch.mesh.abstract_mesh``) is
+what the dry run reckons on ``meta`` (``launch/dryrun.py``): its ``fn``
+runs with no shard context.  A bundle made on a ``DeviceMesh`` runs
+there: its ``fn`` carries ``ShardCtx(mesh, rules)``, and ``on_mesh``
+makes the step JAX's ``jax.jit(fn, in_shardings=..., out_shardings=...)``
+(``src/repro/launch/train.py:73-76``) as a DTensor program: each
+argument distributed by ``in_shardings``, each result laid out by
+``out_shardings``.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models.api import build_model
 from repro_torch.nn import param as P
 from repro_torch.nn import sharding as shd
+from repro_torch.nn.layers import NO_SHARD, ShardCtx
 from repro_torch.nn.param import tree_leaves, tree_map
 from repro_torch.optim import adamw, apply_updates
 
@@ -44,19 +51,21 @@ def value_and_grad(loss_fn, params):
 
 
 def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
-                    opt_state_dtype: torch.dtype = torch.bfloat16):
+                    opt_state_dtype: torch.dtype = torch.bfloat16,
+                    ctx: ShardCtx = NO_SHARD):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     loss, metrics)``: the loss and its gradients, ``adamw(lr,
     weight_decay=0.1)``'s update (moments stored in ``opt_state_dtype``,
     JAX's default bf16) and ``apply_updates``, at a constant learning
     rate as in JAX.  ``batch``: {"tokens", "labels"} (B, S) int tensors
-    on the parameters' device."""
+    on the parameters' device; on a mesh (``ctx``) every argument is a
+    DTensor (``on_mesh``)."""
     model = build_model(cfg)
     opt = adamw(lr, weight_decay=0.1, state_dtype=opt_state_dtype)
 
     def train_step(params, opt_state, batch):
         (loss, metrics), grads = value_and_grad(
-            lambda p: model.loss(p, batch), params)
+            lambda p: model.loss(p, batch, ctx), params)
         with torch.no_grad():
             updates, opt_state = opt.update(grads, opt_state, params)
             params = apply_updates(params, updates)
@@ -108,6 +117,28 @@ def opt_state_shardings(opt_state_abs, param_shardings, mesh):
     return res
 
 
+def _ctx(mesh, rules) -> ShardCtx:
+    """The shard context a bundle's ``fn`` runs with: none on an
+    abstract mesh (the dry run), ``ShardCtx(mesh, rules)`` on a
+    ``DeviceMesh``."""
+    return ShardCtx(mesh, rules) if hasattr(mesh, "mesh_dim_names") \
+        else NO_SHARD
+
+
+def on_mesh(bundle: StepBundle, device_mesh):
+    """``bundle.fn`` on ``device_mesh``: each argument (full tensors, the
+    same on every rank, or DTensors) distributed by ``in_shardings``, the
+    results laid out by ``out_shardings``.  ``jax.jit``'s donation has no
+    counterpart: an argument the step updates in place (the decode
+    cache) is updated in place."""
+    def run(*args):
+        args = tuple(shd.distribute(a, s, device_mesh)
+                     for a, s in zip(args, bundle.in_shardings))
+        return shd.distribute(bundle.fn(*args), bundle.out_shardings,
+                              device_mesh)
+    return run
+
+
 def _logits_sharding(mesh, rules, cfg: ModelConfig, batch: int):
     """The (B, 1, V) last-token logits that prefill and decode return."""
     return shd.NamedSharding(mesh, shd.activation_spec(
@@ -118,6 +149,7 @@ def _logits_sharding(mesh, rules, cfg: ModelConfig, batch: int):
 def make_train_bundle(cfg: ModelConfig, shape: InputShape, mesh,
                       rules, *, lr: float = 3e-4,
                       opt_state_dtype=torch.bfloat16) -> StepBundle:
+    ctx, mesh = _ctx(mesh, rules), shd.mesh_view(mesh)
     model = build_model(cfg)
     opt = adamw(lr, weight_decay=0.1, state_dtype=opt_state_dtype)
 
@@ -132,7 +164,8 @@ def make_train_bundle(cfg: ModelConfig, shape: InputShape, mesh,
     rep = shd.NamedSharding(mesh, shd.PartitionSpec())
     out_metrics = {"ce": rep, "aux": rep}
     return StepBundle(
-        fn=make_train_step(cfg, lr=lr, opt_state_dtype=opt_state_dtype),
+        fn=make_train_step(cfg, lr=lr, opt_state_dtype=opt_state_dtype,
+                           ctx=ctx),
         in_shardings=(params_shard, opt_shard, in_batch_shard),
         out_shardings=(params_shard, opt_shard, rep, out_metrics),
         abstract_args=(params_abs, opt_abs, P.abstract(inputs)),
@@ -142,6 +175,7 @@ def make_train_bundle(cfg: ModelConfig, shape: InputShape, mesh,
 
 def make_prefill_bundle(cfg: ModelConfig, shape: InputShape, mesh,
                         rules) -> StepBundle:
+    ctx, mesh = _ctx(mesh, rules), shd.mesh_view(mesh)
     model = build_model(cfg)
     specs = _apply_param_dtype(model.param_specs(), cfg)
     params_shard = shd.tree_shardings(specs, mesh, rules)
@@ -149,7 +183,7 @@ def make_prefill_bundle(cfg: ModelConfig, shape: InputShape, mesh,
     in_batch_shard = batch_shardings(inputs, mesh, rules)
 
     def prefill_step(params, batch):
-        return model.prefill(params, batch)
+        return model.prefill(params, batch, ctx)
 
     return StepBundle(
         fn=prefill_step,
@@ -161,6 +195,7 @@ def make_prefill_bundle(cfg: ModelConfig, shape: InputShape, mesh,
 
 def make_decode_bundle(cfg: ModelConfig, shape: InputShape, mesh,
                        rules) -> StepBundle:
+    ctx, mesh = _ctx(mesh, rules), shd.mesh_view(mesh)
     model = build_model(cfg)
     specs = _apply_param_dtype(model.param_specs(), cfg)
     params_shard = shd.tree_shardings(specs, mesh, rules)
@@ -172,7 +207,7 @@ def make_decode_bundle(cfg: ModelConfig, shape: InputShape, mesh,
     in_batch_shard = batch_shardings(inputs, mesh, rules)
 
     def serve_step(params, cache, batch):
-        return model.decode_step(params, cache, batch)
+        return model.decode_step(params, cache, batch, ctx=ctx)
 
     return StepBundle(
         fn=serve_step,

@@ -1,6 +1,12 @@
 """Shared model machinery: spec stacking, chunked cross-entropy, base
 class (with the dry run's input specs): the port of
 ``repro.models.common``.
+
+On a mesh (``ctx``) the cross-entropy is vocab-parallel: the logits stay
+sharded on 'vocab', their logsumexp is reduced over that axis, and the
+label's logit is picked by a mask, each rank from its own vocab slice
+(no gather across a sharded dim).  ``LMBase.init`` on a ``DeviceMesh``
+draws each leaf's shard on its own rank.
 """
 from __future__ import annotations
 
@@ -8,11 +14,13 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn import param as P
+from repro_torch.nn.layers import NO_SHARD, ShardCtx, on_mesh_of
 
 
 def stack_specs(specs, n: int):
@@ -62,21 +70,34 @@ def maybe_checkpoint(on: bool, fn, *args):
     return fn(*args)
 
 
-def _xent_piece(xi, table, li, mi):
+def _xent_piece(xi, table, li, mi, ctx=NO_SHARD):
     logits = torch.einsum("bcd,vd->bcv", xi.float(), table.float())
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, li[..., None].long())[..., 0]
+    if not isinstance(logits, DTensor):
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        return torch.sum((logz - ll) * mi), torch.sum(mi)
+    # vocab-parallel: each rank reduces its own vocab slice, and DTensor
+    # combines the slices over 'model' (max, then sums)
+    logits = ctx.constrain(logits, "batch", None, "vocab")
+    m = logits.detach().amax(-1, keepdim=True)
+    logz = (logits - m).exp().sum(-1).log() + m[..., 0]
+    vocab = on_mesh_of(torch.arange(logits.shape[-1],
+                                    device=logits.device), logits)
+    ll = torch.where(vocab == li[..., None], logits, 0.0).sum(-1)
     return torch.sum((logz - ll) * mi), torch.sum(mi)
 
 
-def chunked_softmax_xent(x, table, labels, mask=None, chunk: int = 512):
+def chunked_softmax_xent(x, table, labels, mask=None, chunk: int = 512,
+                         ctx: ShardCtx = NO_SHARD):
     """Next-token CE without materializing (B, S, V) fp32 logits.
 
     Per-sequence-chunk fp32 logits of the fp32 table, each chunk
     recomputed in the backward pass: peak logits memory is one chunk's.
     x: (B,S,D) final hidden; table: (V,D); labels (B,S) int; mask (B,S)
     or None.  JAX's ``lax.scan`` over chunks is a Python loop that adds
-    in the same order."""
+    in the same order.  With DTensor inputs the logits are constrained
+    to ('batch', None, 'vocab') (``src/repro/models/common.py:52``) and
+    reduced vocab-parallel (``_xent_piece``)."""
     b, s, d = x.shape
     if s % chunk or s <= chunk:
         chunk = s
@@ -85,8 +106,11 @@ def chunked_softmax_xent(x, table, labels, mask=None, chunk: int = 512):
         li = labels[:, c0:c0 + chunk]
         mi = (torch.ones(li.shape, dtype=torch.float32, device=x.device)
               if mask is None else mask[:, c0:c0 + chunk].float())
+        if isinstance(li, DTensor) and not isinstance(mi, DTensor):
+            mi = on_mesh_of(mi, li).redistribute(li.device_mesh,
+                                                 li.placements)
         a, c = maybe_checkpoint(True, _xent_piece, x[:, c0:c0 + chunk],
-                                table, li, mi)
+                                table, li, mi, ctx)
         nll, cnt = nll + a, cnt + c
     return nll / torch.clamp(cnt, min=1.0)
 
@@ -101,25 +125,43 @@ class LMBase:
     def param_specs(self) -> Dict[str, Any]:
         raise NotImplementedError
 
-    def init(self, gen: torch.Generator, device: DeviceLike = None):
+    def init(self, gen: torch.Generator, device: DeviceLike = None, *,
+             mesh=None, rules=None):
         """Parameters drawn from ``gen`` (on its own device), placed on
-        ``device`` (default: the GPU)."""
+        ``device`` (default: the GPU).  With ``mesh`` (a ``DeviceMesh``)
+        and ``rules`` each leaf is a DTensor laid out by the rules, and
+        each rank draws only its own shard (``P.materialize_on_mesh``:
+        no rank ever holds a whole leaf)."""
+        if mesh is not None:
+            from repro_torch.nn import sharding as shd
+            specs = self.param_specs()
+            return P.materialize_on_mesh(
+                specs, gen.initial_seed(), mesh,
+                shd.tree_shardings(specs, shd.mesh_view(mesh), rules))
         return P.materialize(self.param_specs(), gen,
                              device=resolve_device(device))
 
+    def refuse_mesh(self, ctx: ShardCtx, item: str) -> None:
+        """Raise where a family that has no mesh execution yet is given a
+        mesh of more than one device (``ROADMAP.md`` queue 1, ``item``)."""
+        if ctx.size > 1:
+            raise NotImplementedError(
+                f"{self.cfg.name}: running on a mesh of {ctx.size} devices "
+                f"is not ported yet (ROADMAP.md queue 1, item {item})")
+
     # ---- training ----
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):
         """(loss, {"ce", "aux"}) of a {"tokens", "labels"} batch;
         differentiable in ``params``."""
         raise NotImplementedError
 
     # ---- serving ----
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, ctx: ShardCtx = NO_SHARD):
         """Returns the last-token logits (B, 1, V) — used by serve
         drivers."""
         raise NotImplementedError
 
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, ctx: ShardCtx = NO_SHARD):
         """batch: {'token': (B,1), 'pos': (B,)}.  Returns (logits, cache)."""
         raise NotImplementedError
 

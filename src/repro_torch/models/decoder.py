@@ -11,6 +11,12 @@ trains through the attention of ``cfg.attention_impl``: ``"dot"`` or
 ``"chunked"`` (the kernel has no backward pass and refuses an input
 that requires grad); with ``cfg.remat`` each layer is recomputed in the
 backward pass, as JAX's ``jax.checkpoint`` over its scanned block.
+
+On a mesh (``ctx``, a ``ShardCtx`` over a ``DeviceMesh``, with DTensor
+parameters and inputs) the dense family runs as a DTensor program,
+constrained at JAX's points (``src/repro/models/decoder.py:83, 110,
+135, 183``).  The MoE family raises there: an ``expert`` axis is
+``ROADMAP.md`` queue 1, item 6.8d.
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from repro_torch.nn import attention as attn
 from repro_torch.nn import mlp as mlp_lib
 from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import param as P
-from repro_torch.nn.layers import (embed, embedding_spec, rmsnorm,
+from repro_torch.nn.layers import (NO_SHARD, ShardCtx, embed,
+                                   embedding_spec, on_mesh_of, rmsnorm,
                                    rmsnorm_spec, unembed)
 
 
@@ -63,42 +70,48 @@ class DecoderLM(LMBase):
         return specs
 
     # ------------------------------------------------------------- forward
-    def _ffn(self, p, x, dtype, pin=None):
+    def _ffn(self, p, x, dtype, pin=None, ctx: ShardCtx = NO_SHARD):
         """The block's MLP or MoE on x = rmsnorm(h): (y, aux, the expert
         ids it routed to or None)."""
         cfg = self.cfg
         if cfg.moe is None:
-            return mlp_lib.mlp(p["mlp"], x, cfg.mlp_activation, dtype), \
-                torch.zeros((), dtype=torch.float32, device=x.device), None
+            return mlp_lib.mlp(p["mlp"], x, cfg.mlp_activation, dtype,
+                               ctx), on_mesh_of(torch.zeros(
+                                   (), dtype=torch.float32,
+                                   device=x.device), x), None
         return moe_lib.moe_mlp_routed(p["moe"], x, cfg.moe,
                                       cfg.mlp_activation, dtype,
                                       expert_ids=pin)
 
-    def _block(self, p, x, positions, window, dtype, pin=None):
+    def _block(self, p, x, positions, window, dtype, pin=None,
+               ctx: ShardCtx = NO_SHARD):
         cfg = self.cfg
         h = attn.attend(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
                         positions, num_heads=cfg.num_heads,
                         num_kv_heads=cfg.num_kv_heads,
                         head_dim=cfg.resolved_head_dim(),
                         rope_theta=cfg.rope_theta, causal=True,
-                        window=window, dtype=dtype,
+                        window=window, ctx=ctx, dtype=dtype,
                         impl=cfg.attention_impl)
         x = x + h
         y, aux, ids = self._ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps),
-                                dtype, pin)
+                                dtype, pin, ctx)
         return x + y, aux, ids
 
-    def _backbone(self, params, x, positions, window=None, pins=None):
+    def _backbone(self, params, x, positions, window=None, pins=None,
+                  ctx: ShardCtx = NO_SHARD):
         """(final-normed hidden, the layers' summed aux loss, each MoE
         layer's expert ids); ``pins`` (L, B, S, k) fixes the routing."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = on_mesh_of(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
         ids = []
         for i, lp in enumerate(unstack(params["layers"])):
+            x = ctx.constrain(x, "batch", None, "embed_act")
             x, a, e = maybe_checkpoint(
                 cfg.remat, self._block, lp, x, positions, window, dtype,
-                None if pins is None else pins[i])
+                None if pins is None else pins[i], ctx)
             aux = aux + a
             ids.append(e)
         return rmsnorm(x, params["ln_f"], cfg.norm_eps), aux, ids
@@ -113,37 +126,48 @@ class DecoderLM(LMBase):
         return params["embedding"] if self.cfg.tie_embeddings \
             else params["unembed"]
 
-    def _hidden(self, params, batch):
+    def _check_mesh(self, ctx: ShardCtx) -> None:
+        if self.cfg.moe is not None:
+            self.refuse_mesh(ctx, "6.8d")
+
+    def _hidden(self, params, batch, ctx: ShardCtx = NO_SHARD,
+                loss: bool = False):
         """``_backbone`` over ``batch["tokens"]`` (after ``batch["embeds"]``
         where given; positions run over the whole sequence); the sliding
         window applies only past ``cfg.sliding_window``.
         ``batch["expert_ids"]`` (L, B, S, k), for checks only, pins the
-        MoE routing (``nn.moe.moe_mlp``)."""
+        MoE routing (``nn.moe.moe_mlp``).  ``loss`` constrains the
+        embeddings as JAX's ``loss`` does (``:110``)."""
         cfg = self.cfg
+        self._check_mesh(ctx)
         x = self._embed_inputs(params, batch, getattr(torch, cfg.dtype))
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = on_mesh_of(torch.arange(s, device=x.device)
+                               .expand(b, s), x)
+        if loss:
+            x = ctx.constrain(x, "batch", None, None)
         return self._backbone(params, x, positions,
                               window=cfg.sliding_window
                               if cfg.sliding_window
                               and s > cfg.sliding_window else None,
-                              pins=batch.get("expert_ids"))
+                              pins=batch.get("expert_ids"), ctx=ctx)
 
     # ------------------------------------------------------------- training
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):
         """(ce + the MoE layers' aux loss, {"ce", "aux"}); the frontend's
         ``embeds`` rows carry no labels."""
-        h, aux, _ = self._hidden(params, batch)
+        h, aux, _ = self._hidden(params, batch, ctx, loss=True)
         npad = h.shape[1] - batch["labels"].shape[1]
         ce = chunked_softmax_xent(h[:, npad:], self._table(params),
-                                  batch["labels"])
+                                  batch["labels"], ctx=ctx)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
-    def prefill(self, params, batch):
-        h, _, _ = self._hidden(params, batch)
-        return unembed(h[:, -1:], self._table(params))
+    def prefill(self, params, batch, ctx: ShardCtx = NO_SHARD):
+        h, _, _ = self._hidden(params, batch, ctx)
+        return ctx.constrain(unembed(h[:, -1:], self._table(params)),
+                             "batch", None, "vocab")
 
     @torch.no_grad()
     def routing(self, params, batch):
@@ -168,10 +192,12 @@ class DecoderLM(LMBase):
 
     @torch.no_grad()
     def decode_step(self, params, cache, batch,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None,
+                    ctx: ShardCtx = NO_SHARD):
         """One token for every row.  ``cache`` is updated in place and
         returned (see ``attn.decode_attend``)."""
         cfg = self.cfg
+        self._check_mesh(ctx)
         dtype = getattr(torch, cfg.dtype)
         x = embed(batch["token"], params["embedding"], dtype)
         pos = batch["pos"]
@@ -188,9 +214,10 @@ class DecoderLM(LMBase):
                 take_layer(cache, i), pos, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim(), rope_theta=cfg.rope_theta,
-                window=win, dtype=dtype)
+                window=win, ctx=ctx, dtype=dtype)
             h = h + a
             h = h + self._ffn(p, rmsnorm(h, p["ln2"], cfg.norm_eps),
-                              dtype)[0]
+                              dtype, ctx=ctx)[0]
         h = rmsnorm(h, params["ln_f"], cfg.norm_eps)
-        return unembed(h, self._table(params)), cache
+        return ctx.constrain(unembed(h, self._table(params)),
+                             "batch", None, "vocab"), cache

@@ -22,8 +22,9 @@ from repro_torch.models.common import (LMBase, chunked_softmax_xent,
 from repro_torch.nn import attention as attn
 from repro_torch.nn import mlp as mlp_lib
 from repro_torch.nn import param as P
-from repro_torch.nn.layers import (embed, embedding_spec, rmsnorm,
-                                   rmsnorm_spec, unembed)
+from repro_torch.nn.layers import (NO_SHARD, ShardCtx, embed,
+                                   embedding_spec, rmsnorm, rmsnorm_spec,
+                                   unembed)
 
 
 def _enc_layer_specs(cfg):
@@ -122,9 +123,10 @@ class EncDecModel(LMBase):
                                  positions, dt)
         return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):
         """(ce, {"ce", "aux": 0}) of a {"src_embeds", "tokens", "labels"}
         batch."""
+        self.refuse_mesh(ctx, "6.8d")
         memory = self._encode(params, batch["src_embeds"])
         h = self._decode_seq(params, batch["tokens"], memory)
         ce = chunked_softmax_xent(h, params["unembed"], batch["labels"])
@@ -133,8 +135,9 @@ class EncDecModel(LMBase):
                                        device=h.device)}
 
     @torch.no_grad()
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, ctx: ShardCtx = NO_SHARD):
         """Last-token logits (B, 1, V) of {"src_embeds", "tokens"}."""
+        self.refuse_mesh(ctx, "6.8d")
         memory = self._encode(params, batch["src_embeds"])
         h = self._decode_seq(params, batch["tokens"], memory)
         return unembed(h[:, -1:], params["unembed"])
@@ -171,9 +174,11 @@ class EncDecModel(LMBase):
 
     @torch.no_grad()
     def decode_step(self, params, cache, batch,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None,
+                    ctx: ShardCtx = NO_SHARD):
         """One token for every row against ``cache["cross"]``; the
         self-attention cache is updated in place and returned."""
+        self.refuse_mesh(ctx, "6.8d")
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         h = embed(batch["token"], params["embedding"], dt)

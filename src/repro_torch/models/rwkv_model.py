@@ -22,8 +22,9 @@ from repro_torch.models.common import (LMBase, chunked_softmax_xent,
                                       take_layer, unstack)
 from repro_torch.nn import param as P
 from repro_torch.nn import rwkv
-from repro_torch.nn.layers import (embed, embedding_spec, rmsnorm,
-                                   rmsnorm_spec, unembed)
+from repro_torch.nn.layers import (NO_SHARD, ShardCtx, embed,
+                                   embedding_spec, rmsnorm, rmsnorm_spec,
+                                   unembed)
 
 
 def _layer_specs(cfg):
@@ -101,7 +102,8 @@ class RWKVModel(LMBase):
                 torch.zeros(L, batch, cfg.d_model, dtype=dt, device=dev))
 
     # ------------------------------------------------------------ training
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):
+        self.refuse_mesh(ctx, "6.8c")
         h = self._backbone(params, self._embed(params, batch["tokens"]),
                            impl="plain")
         ce = chunked_softmax_xent(h, params["unembed"], batch["labels"])
@@ -110,15 +112,17 @@ class RWKVModel(LMBase):
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, ctx: ShardCtx = NO_SHARD):
+        self.refuse_mesh(ctx, "6.8c")
         h = self._backbone(params, self._embed(params, batch["tokens"]))
         return unembed(h[:, -1:], params["unembed"])
 
     @torch.no_grad()
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, ctx: ShardCtx = NO_SHARD):
         """One token for every row (``batch["pos"]`` is not needed: the
         state carries the history).  ``cache`` is updated in place and
         returned."""
+        self.refuse_mesh(ctx, "6.8c")
         cfg = self.cfg
         x = self._embed(params, batch["token"])
         prev_att, wkv, prev_ffn = cache

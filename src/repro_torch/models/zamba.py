@@ -33,8 +33,9 @@ from repro_torch.nn import attention as attn
 from repro_torch.nn import mamba
 from repro_torch.nn import mlp as mlp_lib
 from repro_torch.nn import param as P
-from repro_torch.nn.layers import (embed, embedding_spec, rmsnorm,
-                                   rmsnorm_spec, unembed)
+from repro_torch.nn.layers import (NO_SHARD, ShardCtx, embed,
+                                   embedding_spec, rmsnorm, rmsnorm_spec,
+                                   unembed)
 
 
 def _mamba_layer_specs(cfg):
@@ -141,7 +142,8 @@ class ZambaModel(LMBase):
                        params["ln_f"], cfg.norm_eps)
 
     # ------------------------------------------------------------ training
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):
+        self.refuse_mesh(ctx, "6.8c")
         h = self._hidden(params, batch["tokens"], impl="plain")
         ce = chunked_softmax_xent(h, params["unembed"], batch["labels"])
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
@@ -149,7 +151,8 @@ class ZambaModel(LMBase):
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, ctx: ShardCtx = NO_SHARD):
+        self.refuse_mesh(ctx, "6.8c")
         h = self._hidden(params, batch["tokens"])
         return unembed(h[:, -1:], params["unembed"])
 
@@ -171,10 +174,11 @@ class ZambaModel(LMBase):
                           resolve_device(device))
 
     @torch.no_grad()
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, ctx: ShardCtx = NO_SHARD):
         """One token for every row.  ``cache`` is updated in place and
         returned: each mamba layer's conv and SSD state, and each group's
         KV ring buffer (window ``cfg.sliding_window``)."""
+        self.refuse_mesh(ctx, "6.8c")
         cfg = self.cfg
         x = embed(batch["token"], params["embedding"],
                   getattr(torch, cfg.dtype))

@@ -7,15 +7,25 @@ in PyTorch) or ``"kernel"`` (the CUDA flash-attention kernel; its plain
 version on CPU tensors).  The casts are JAX's: ``dot_attention`` casts
 the fp32 probabilities to the compute dtype before the PV product, the
 chunked and kernel paths keep PV in fp32.
+
+On a mesh (``ctx``, a ``ShardCtx`` over a ``DeviceMesh``) the weights
+and activations are DTensors: q, k and the attention output are
+constrained at JAX's points (``src/repro/nn/attention.py:131-132, 151,
+221``), the positions, rope tables and masks are made as replicated
+DTensors on the activations' mesh, the flash kernel runs on each rank's
+shard through its sharding rule (``kernels/flash_attention/ops.py``),
+and decode writes each rank's own rows of a cache sharded on batch and
+kv heads.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.nn.layers import apply_rope
+from repro_torch.nn.layers import NO_SHARD, ShardCtx, apply_rope, on_mesh_of
 from repro_torch.nn.param import ParamSpec
 
 NEG_INF = -2.0e9
@@ -32,14 +42,51 @@ def attention_specs(d_model: int, num_heads: int, num_kv_heads: int,
 
 
 def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(B, S, KV, hd) -> (B, S, H, hd) by group broadcast."""
+    """(B, S, KV, hd) -> (B, S, H, hd) by group broadcast.  A DTensor is
+    repeated on each rank's shard, keeping its layout: a rank holding KV
+    heads [a, b) holds query heads [a, b) * H/KV of the result."""
     rep = num_heads // k.shape[2]
-    return k if rep == 1 else k.repeat_interleave(rep, dim=2)
+    if rep == 1:
+        return k
+    if not isinstance(k, DTensor):
+        return k.repeat_interleave(rep, dim=2)
+    shape = k.shape[:2] + (num_heads,) + k.shape[3:]
+    return DTensor.from_local(
+        k.to_local().repeat_interleave(rep, dim=2), k.device_mesh,
+        k.placements, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
 
 
 # fp32 score elements ``dot_attention`` holds at once (4 GiB): past
 # them it takes the queries a block of rows at a time
 SCORES_BLOCK = 1 << 30
+
+
+def _per_shard(fn, q, k, v, mask=None):
+    """``fn(q, k, v[, mask])`` on each rank's own rows and heads when q is
+    a DTensor: attention is independent per (batch, head), so with k, v
+    (heads pre-repeated) laid out as q, and the mask's batch dim as q's,
+    each rank's local call computes its shard of the output (DTensor's
+    own einsum strategies would flatten a sharded head dim into the
+    batch, which some torch versions refuse).  Batch and head splits
+    stay; any other split of q is gathered first."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v) if mask is None else fn(q, k, v, mask)
+    dm = q.device_mesh
+    keep = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+            for p in q.placements]
+    q, k, v = (t.redistribute(dm, keep) for t in (q, k, v))
+    args = [q.to_local(), k.to_local(), v.to_local()]
+    if mask is not None:
+        mask = on_mesh_of(mask, q).redistribute(dm, [
+            p if isinstance(p, Shard) and p.dim == 0 and mask.shape[0] > 1
+            else Replicate() for p in keep])
+        args.append(mask.to_local())
+    out = fn(*args).contiguous()        # the strides given below
+    shape = q.shape[:3] + v.shape[3:]
+    return DTensor.from_local(out, dm, keep, run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
 
 
 def _dot_rows(q, k, v, mask, dtype):
@@ -56,7 +103,12 @@ def dot_attention(q, k, v, mask, dtype=torch.bfloat16):
     The scores are materialized, for SCORES_BLOCK elements at most: a
     longer prompt's queries go a block of rows at a time (each row's
     softmax is its own), so a (1, 9216) prompt of 48 heads holds 4 GiB
-    of scores, not 15."""
+    of scores, not 15.  DTensors: each rank its own rows and heads
+    (``_per_shard``)."""
+    return _per_shard(lambda *a: _dot_blocks(*a, dtype), q, k, v, mask)
+
+
+def _dot_blocks(q, k, v, mask, dtype):
     b, sq, h, _ = q.shape
     rows = max(1, SCORES_BLOCK // (b * h * k.shape[1]))
     if rows >= sq:
@@ -70,7 +122,13 @@ def chunked_attention(q, k, v, *, causal=True, window=None,
                       chunk: int = 1024, dtype=torch.bfloat16):
     """Online-softmax attention over KV chunks, so the (Sq, Sk) scores are
     never materialized.  q: (B,Sq,H,hd); k,v: (B,Sk,H,hd) (heads
-    pre-repeated).  JAX's ``lax.scan`` over chunks is a Python loop."""
+    pre-repeated).  JAX's ``lax.scan`` over chunks is a Python loop.
+    DTensors: each rank its own rows and heads (``_per_shard``)."""
+    return _per_shard(lambda *a: _chunked(*a, causal, window, chunk, dtype),
+                      q, k, v)
+
+
+def _chunked(q, k, v, causal, window, chunk, dtype):
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     qf = q.float() / float(hd) ** 0.5
@@ -122,8 +180,8 @@ def project_qkv(params, x, positions, rope_theta, dtype=torch.bfloat16):
 
 
 def attend(params, x, positions, *, num_heads, num_kv_heads, head_dim,
-           rope_theta, causal=True, window=None, dtype=torch.bfloat16,
-           cross_kv=None, impl="dot"):
+           rope_theta, causal=True, window=None, ctx: ShardCtx = NO_SHARD,
+           dtype=torch.bfloat16, cross_kv=None, impl="dot"):
     """Self (or cross) attention over a full sequence (prefill).
 
     x: (B, S, D).  cross_kv: optional (k, v) from an encoder
@@ -137,6 +195,10 @@ def attend(params, x, positions, *, num_heads, num_kv_heads, head_dim,
     else:
         q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
         k, v = cross_kv
+    # 'seq' resolves to () under the default rules; seq_parallel maps it
+    # to the model axis
+    q = ctx.constrain(q, "batch", "seq", "heads", None)
+    k = ctx.constrain(k, "batch", None, "kv_heads", None)
     sk = k.shape[1]
 
     if impl == "kernel" and cross_kv is None and causal:
@@ -152,7 +214,9 @@ def attend(params, x, positions, *, num_heads, num_kv_heads, head_dim,
         else:
             mask = causal_mask(s, sk, window=window, device=x.device)
         out = dot_attention(q, _repeat_kv(k, num_heads),
-                            _repeat_kv(v, num_heads), mask, dtype=dtype)
+                            _repeat_kv(v, num_heads), on_mesh_of(mask, q),
+                            dtype=dtype)
+    out = ctx.constrain(out, "batch", None, "heads", None)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
 
 
@@ -172,15 +236,34 @@ def init_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _write_rows(cache: torch.Tensor, rows: torch.Tensor,
+                slot: torch.Tensor) -> None:
+    """``cache[b, slot[b]] = rows[b, 0]`` for every row b, in place.  On a
+    mesh each rank writes the rows of its own shard: ``rows`` (B, 1, KV,
+    hd) is laid out as the cache (batch and kv heads) and ``slot`` (B,)
+    as the cache's batch dim, so the local tensors line up."""
+    if isinstance(cache, DTensor):
+        rows = rows.redistribute(cache.device_mesh, cache.placements)
+        slot = slot.redistribute(cache.device_mesh, [
+            p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in cache.placements])
+        cache, rows, slot = cache.to_local(), rows.to_local(), \
+            slot.to_local()
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    cache[bidx, slot] = rows[:, 0].to(cache.dtype)
+
+
 def decode_attend(params, x, cache, pos, *, num_heads, num_kv_heads,
-                  head_dim, rope_theta, window=None, dtype=torch.bfloat16,
+                  head_dim, rope_theta, window=None,
+                  ctx: ShardCtx = NO_SHARD, dtype=torch.bfloat16,
                   cross_kv=None):
     """One-token decode.  x: (B, 1, D); pos: (B,) current absolute position.
 
     With ``window`` the cache is a ring buffer of size ``window`` (slot =
     pos % window).  The new key and value are written into ``cache`` in
     place (JAX returns an updated copy; the port saves the copy, as JAX's
-    donated buffers do).  Returns (out (B,1,D), cache).
+    donated buffers do), on a mesh each rank its own rows
+    (``_write_rows``).  Returns (out (B,1,D), cache).
     """
     b = x.shape[0]
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
@@ -202,11 +285,11 @@ def decode_attend(params, x, cache, pos, *, num_heads, num_kv_heads,
 
     max_len = cache["k"].shape[1]
     slot = pos % max_len if window is not None else pos
-    bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, slot] = kn[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = vn[:, 0].to(cache["v"].dtype)
+    _write_rows(cache["k"], kn, slot)
+    _write_rows(cache["v"], vn, slot)
 
-    kpos = torch.arange(max_len, device=x.device)[None, :]    # (1, S)
+    kpos = on_mesh_of(torch.arange(max_len, device=x.device)[None, :],
+                      pos)                                     # (1, S)
     p = pos[:, None]
     if window is not None:
         # ring buffer: entry at slot j holds absolute position a with
@@ -221,4 +304,5 @@ def decode_attend(params, x, cache, pos, *, num_heads, num_kv_heads,
 
     out = dot_attention(q, _repeat_kv(cache["k"], num_heads),
                         _repeat_kv(cache["v"], num_heads), mask, dtype=dtype)
+    out = ctx.constrain(out, "batch", None, "heads", None)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype)), cache

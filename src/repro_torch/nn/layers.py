@@ -1,14 +1,53 @@
-"""Basic layers: RMSNorm, embedding, rotary embeddings.
+"""Basic layers: RMSNorm, embedding, rotary embeddings, shard context.
 
-The port of ``repro.nn.layers``.  There is no shard context: on one GPU
-every ``ctx.constrain`` of the JAX package is the identity.
+The port of ``repro.nn.layers``.  ``ShardCtx`` carries a ``DeviceMesh``
+and the logical rules into model code; its ``constrain`` redistributes
+a DTensor activation (``nn.sharding.constrain``), and with no mesh it is
+the identity, as JAX's.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Optional
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.nn import sharding as shd
 from repro_torch.nn.param import ParamSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Carries mesh + logical rules into model code; None mesh = no-op
+    (``src/repro/nn/layers.py:14-26``).  ``mesh`` is a ``DeviceMesh``."""
+    mesh: Optional[Any] = None
+    rules: Any = None
+
+    def constrain(self, x, *axes):
+        if self.mesh is None:
+            return x
+        return shd.constrain(x, self.mesh, self.rules, *axes)
+
+    @property
+    def size(self) -> int:
+        """Devices in the mesh (1 without one)."""
+        return 1 if self.mesh is None else self.mesh.size()
+
+
+NO_SHARD = ShardCtx()
+
+
+def on_mesh_of(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` (made here, the same on every rank: positions, rope tables,
+    masks) as a replicated DTensor on ``like``'s mesh when ``like`` is a
+    DTensor; else ``t`` itself."""
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    dm = like.device_mesh
+    return DTensor.from_local(t, dm, [Replicate()] * dm.ndim,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------- rmsnorm
@@ -43,8 +82,24 @@ def embed(tokens: torch.Tensor, table: torch.Tensor,
           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Rows of ``table`` in the compute dtype.  The JAX package casts the
     whole table first; gathering first gives the same values without a
-    cast copy of the (vocab, dim) table per call."""
-    return F.embedding(tokens, table).to(compute_dtype)
+    cast copy of the (vocab, dim) table per call.
+
+    A DTensor table sharded on its ``embed`` dim (FSDP, over 'data') is
+    first gathered on that dim, as GSPMD gathers an FSDP leaf at its use;
+    its vocab dim may stay sharded: DTensor's lookup masks the rows a
+    rank does not hold, and the masked partial rows are summed over that
+    axis here (an all-reduce), before any other op reads them."""
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table).to(compute_dtype)
+    want = [Replicate() if getattr(p, "dim", None) == 1 else p
+            for p in table.placements]
+    if want != list(table.placements):
+        table = table.redistribute(table.device_mesh, want)
+    x = F.embedding(tokens, table)
+    want = [Replicate() if p.is_partial() else p for p in x.placements]
+    if want != list(x.placements):
+        x = x.redistribute(x.device_mesh, want)
+    return x.to(compute_dtype)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -67,7 +122,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq) int.  Pairs
     are half-split (dim i with dim i + head_dim/2), not interleaved."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)         # (half,)
+    freqs = on_mesh_of(rope_freqs(x.shape[-1], theta, x.device),
+                       positions)                            # (half,)
     angles = positions[..., :, None].float() * freqs         # (...,S,half)
     cos = torch.cos(angles)[..., :, None, :]                 # (...,S,1,half)
     sin = torch.sin(angles)[..., :, None, :]

@@ -1,12 +1,15 @@
 """Dense MLPs: SwiGLU / GeGLU / plain GELU (the port of ``repro.nn.mlp``).
 
 GELU is the tanh approximation, as ``jax.nn.gelu(approximate=True)``.
+On a mesh the hidden activation is constrained at JAX's point
+(``src/repro/nn/mlp.py:35``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.nn.layers import NO_SHARD, ShardCtx
 from repro_torch.nn.param import ParamSpec
 
 
@@ -28,7 +31,10 @@ def _gelu(t: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(params, x: torch.Tensor, activation: str,
-        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        dtype: torch.dtype = torch.bfloat16,
+        ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """JAX's ``mlp(params, x, activation, ctx, dtype)``; ``dtype`` comes
+    before ``ctx`` here, as the port's callers pass it by position."""
     if activation in ("swiglu", "geglu"):
         g = torch.einsum("bsd,df->bsf", x, params["wi_gate"].to(dtype))
         u = torch.einsum("bsd,df->bsf", x, params["wi_up"].to(dtype))
@@ -36,4 +42,5 @@ def mlp(params, x: torch.Tensor, activation: str,
         h = act(g) * u
     else:
         h = _gelu(torch.einsum("bsd,df->bsf", x, params["wi"].to(dtype)))
+    h = ctx.constrain(h, "batch", None, "mlp")
     return torch.einsum("bsf,fd->bsd", h, params["wo"].to(dtype))

@@ -11,8 +11,9 @@ weights — the layout the ``alpha_combine`` transfer mixes.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -87,6 +88,118 @@ def materialize(specs: Dict[str, Any], gen: torch.Generator, *,
     return {k: materialize(specs[k], gen, device=device)
             if isinstance(specs[k], dict)
             else _init_leaf(specs[k], gen).to(device) for k in sorted(specs)}
+
+
+# elements drawn at once by ``draw_shard`` (256 MB of fp32 normals)
+DRAW_CHUNK = 1 << 26
+
+
+def shard_bounds(shape: Sequence[int], spec, mesh_sizes: Dict[str, int],
+                 coord: Dict[str, int]) -> List[Tuple[int, int]]:
+    """(start, stop) of each dim held by the device at ``coord`` (mesh
+    axis -> index) under ``spec`` (a ``PartitionSpec``): a dim split over
+    several axes takes them first outermost, as JAX lays it out."""
+    out = []
+    for i, n in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        names = () if entry is None else \
+            (entry if isinstance(entry, tuple) else (entry,))
+        idx, split = 0, 1
+        for name in names:
+            idx = idx * mesh_sizes[name] + coord[name]
+            split *= mesh_sizes[name]
+        size = n // split
+        out.append((idx * size, (idx + 1) * size))
+    return out
+
+
+def _chunk_seed(seed: int, path: str, chunk: int) -> int:
+    digest = hashlib.sha256(f"{seed}/{path}/{chunk}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") & (2 ** 63 - 1)
+
+
+def draw_shard(spec: ParamSpec, seed: int, path: str,
+               bounds: Sequence[Tuple[int, int]],
+               device) -> torch.Tensor:
+    """The block ``bounds`` of leaf ``path``, drawn so that it does not
+    depend on how the leaf is split: the leaf is cut along dim 0 into
+    chunks of about ``DRAW_CHUNK`` elements, each drawn whole from a
+    generator on ``device`` seeded from (``seed``, ``path``, chunk
+    index), and the block is cut out of the chunks it overlaps.  At most
+    one chunk is held besides the block."""
+    dtype = getattr(torch, spec.dtype)
+    shape = tuple(b - a for a, b in bounds)
+    if spec.init in ("zeros", "ones"):
+        fill = torch.zeros if spec.init == "zeros" else torch.ones
+        return fill(shape, dtype=dtype, device=device)
+    std = spec.scale if spec.init == "embed" else \
+        spec.scale / math.sqrt(max(1, math.prod(spec.shape[:-1])))
+    if spec.init not in ("embed", "normal"):
+        raise ValueError(f"unsupported init {spec.init!r}")
+    rest = spec.shape[1:]
+    rows = max(1, DRAW_CHUNK // max(1, math.prod(rest)))
+    inner = tuple(slice(a, b) for a, b in bounds[1:])
+    (r0, r1), parts = bounds[0], []
+    gen = torch.Generator(device=device)
+    for c in range(r0 // rows, (r1 - 1) // rows + 1):
+        lo = c * rows
+        n = min(rows, spec.shape[0] - lo)
+        gen.manual_seed(_chunk_seed(seed, path, c))
+        block = torch.randn((n,) + tuple(rest), generator=gen,
+                            dtype=torch.float32, device=device)
+        a, b = max(r0, lo) - lo, min(r1, lo + n) - lo
+        parts.append((block[(slice(a, b),) + inner] * std).to(dtype))
+        del block
+    return torch.cat(parts) if len(parts) > 1 else parts[0].contiguous()
+
+
+def materialize_on_mesh(specs: Dict[str, Any], seed: int, device_mesh,
+                        shardings: Dict[str, Any]) -> Dict[str, Any]:
+    """DTensor parameters on ``device_mesh``, each laid out by the
+    ``NamedSharding`` at its place in ``shardings``, each rank making
+    only its own shard.
+
+    On a CPU mesh every rank draws the leaves whole from one CPU
+    generator seeded ``seed``, in JAX tree order, as ``materialize``
+    does with that generator, and keeps its shard: the weights equal a
+    one-process run's.  On the cards each rank draws its shard through
+    ``draw_shard`` on its card: no rank holds a whole leaf (granite-34b's
+    stacked MLP leaf is 53 GB in fp32), and the draws do not depend on
+    the mesh.  DTensor's own random ops are not used: its offset-based
+    RNG tracker shifts a shard's Philox offset by the shard's linear
+    index times its size, which matches the unsplit draw only where a
+    shard is a contiguous range of the leaf, not for a shard of dim 1
+    or later."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.nn.sharding import placements
+    names = device_mesh.mesh_dim_names
+    sizes = dict(zip(names, device_mesh.shape))
+    coord = dict(zip(names, device_mesh.get_coordinate()))
+    dev = torch.device(device_mesh.device_type,
+                       torch.cuda.current_device()) \
+        if device_mesh.device_type == "cuda" else torch.device("cpu")
+    cpu_gen = torch.Generator().manual_seed(seed) \
+        if dev.type == "cpu" else None
+
+    def leaf(spec, sharding, path):
+        bounds = shard_bounds(spec.shape, sharding.spec, sizes, coord)
+        if cpu_gen is not None:
+            local = _init_leaf(spec, cpu_gen)[
+                tuple(slice(a, b) for a, b in bounds)].contiguous()
+        else:
+            local = draw_shard(spec, seed, path, bounds, dev)
+        return DTensor.from_local(
+            local, device_mesh, placements(sharding.spec, device_mesh),
+            run_check=False, shape=torch.Size(spec.shape),
+            stride=torch.empty(spec.shape, device="meta").stride())
+
+    def walk(tree, shard, path):
+        return {k: walk(tree[k], shard[k], f"{path}/{k}")
+                if isinstance(tree[k], dict)
+                else leaf(tree[k], shard[k], f"{path}/{k}")
+                for k in sorted(tree)}
+
+    return walk(specs, shardings, "")
 
 
 def count_params(tree) -> int:

@@ -8,19 +8,31 @@ divides the dim size, is taken; otherwise the dim is replicated.  This gives
 divisibility-safe fallback (e.g. kv_heads=8 on a model=16 axis -> replicate,
 kv_heads=32 -> shard).
 
-Pure Python: a mesh is anything with a ``.shape`` dict of axis sizes (the
-port's ``launch.mesh.LocalMesh`` and ``abstract_mesh``), as JAX's
-resolution reads it.  ``spec_for`` and ``activation_spec`` return the
-port's own ``PartitionSpec``; ``tree_shardings`` gives ``NamedSharding``s
-whose ``shard_shape`` is a leaf's per-device shape.  JAX's ``constrain``
-has no port: the port runs no partitioner, so every ``ctx.constrain`` of
-the JAX package is the identity (``nn/layers.py``).
+The resolution is pure Python: a mesh is anything with a ``.shape``
+dict of axis sizes (the port's ``launch.mesh.LocalMesh`` and
+``abstract_mesh``), as JAX's resolution reads it; a ``DeviceMesh`` is
+read through ``mesh_view``.  ``spec_for`` and
+``activation_spec`` return the port's own ``PartitionSpec``;
+``tree_shardings`` gives ``NamedSharding``s whose ``shard_shape`` is a
+leaf's per-device shape.
+
+On a ``DeviceMesh`` the specs become DTensor layouts, DTensor standing
+where GSPMD stands in JAX: ``placements`` turns a ``PartitionSpec`` into
+one ``Shard``/``Replicate`` a mesh dim, ``distribute`` lays a tree out
+by its shardings, and ``constrain`` (JAX's ``with_sharding_constraint``,
+``src/repro/nn/sharding.py:177-183``) ``redistribute``s a DTensor to
+the activation's spec; a plain tensor passes through, as JAX's is a
+no-op outside a mesh.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.nn import param as param_lib
 
@@ -227,3 +239,74 @@ def activation_spec(mesh, rules: Rules, *axes: Optional[str],
     while out and out[-1] is None:
         out.pop()
     return PartitionSpec(*out)
+
+
+# ---------------------------------------------------------------- DTensor
+def mesh_view(mesh):
+    """``mesh`` as the rules read it: a ``DeviceMesh`` becomes its axis
+    sizes; any other mesh is returned as it is."""
+    if hasattr(mesh, "mesh_dim_names"):
+        from repro_torch.launch.mesh import abstract_mesh
+        return abstract_mesh(mesh.shape, mesh.mesh_dim_names)
+    return mesh
+
+
+def placements(spec: PartitionSpec, device_mesh) -> List[Any]:
+    """One DTensor placement a mesh dim: ``Shard(i)`` where dim ``i`` of
+    ``spec`` names the mesh dim (alone or in a tuple, which splits the
+    dim over each of its axes, the first outermost, as JAX lays it out),
+    else ``Replicate()``."""
+    names = device_mesh.mesh_dim_names
+    out: List[Any] = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            out[names.index(name)] = Shard(i)
+    return out
+
+
+def distribute(tree, shardings, device_mesh):
+    """``tree``'s tensors (nested dicts and tuples) as DTensors laid out by
+    the ``NamedSharding`` at the same place of ``shardings``.  Every rank
+    passes the same full tensors, and each keeps its own shard of them
+    (no rank's copy is sent); a DTensor is redistributed where its
+    layout differs."""
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k], device_mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(distribute(v, s, device_mesh)
+                          for v, s in zip(tree, shardings))
+    if tree is None:
+        return None
+    want = placements(shardings.spec, device_mesh)
+    if isinstance(tree, DTensor):
+        return tree if list(tree.placements) == want \
+            else tree.redistribute(device_mesh, want)
+    return distribute_tensor(tree, device_mesh, want, src_data_rank=None)
+
+
+def full(tree):
+    """Every DTensor of a tree (nested dicts and tuples) gathered into a
+    plain tensor on each rank; other leaves are returned as they are."""
+    if isinstance(tree, dict):
+        return {k: full(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(full(v) for v in tree)
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+
+
+def constrain(x: torch.Tensor, mesh, rules: Rules, *axes: Optional[str]):
+    """``x`` laid out by the logical ``axes`` (resolved against ``x``'s
+    dims): a DTensor is ``redistribute``d (an all-gather, a reduce-scatter
+    or a local slice, as the placements differ); a plain tensor is
+    returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dm = x.device_mesh
+    spec = activation_spec(mesh_view(dm), rules, *axes, dims=x.shape)
+    want = placements(spec, dm)
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(dm, want)

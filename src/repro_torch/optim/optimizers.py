@@ -14,6 +14,10 @@ parameters' device, so a step reads nothing back to the host.  The
 arithmetic is JAX's, in its order (``adamw``: ``b2 = 0.95`` and ``eps``
 outside the square root, decoupled decay on the masked leaves); this is
 not ``torch.optim.AdamW``, whose ``eps`` and decay sit elsewhere.
+
+DTensor parameters (a mesh) get DTensor state laid out as they are, and
+a replicated ``step``: every update is then elementwise on each rank's
+shard, and ``global_norm``'s sums are reduced over the mesh by DTensor.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.nn.layers import on_mesh_of
 from repro_torch.nn.param import tree_leaves, tree_map
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]   # step -> lr
@@ -41,6 +46,14 @@ def _as_schedule(lr) -> Schedule:
 
 def _first(tree) -> torch.Tensor:
     return tree_leaves(tree)[0]
+
+
+def _step0(params) -> torch.Tensor:
+    """The int32 step counter 0 on the parameters' device (replicated on
+    their mesh when they are DTensors)."""
+    p = _first(params)
+    return on_mesh_of(torch.zeros((), dtype=torch.int32, device=p.device),
+                      p)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -65,12 +78,10 @@ def sgd(lr, momentum: float = 0.0, nesterov: bool = False) -> Optimizer:
     sched = _as_schedule(lr)
 
     def init(params):
-        mu = (tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        mu = (tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params)
               if momentum else None)
-        return {"step": torch.zeros((), dtype=torch.int32,
-                                    device=_first(params).device),
-                "mu": mu}
+        return {"step": _step0(params), "mu": mu}
 
     def update(grads, state, params=None):
         step = state["step"] + 1
@@ -104,9 +115,8 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
     def init(params):
         def z(p):
-            return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
-        return {"step": torch.zeros((), dtype=torch.int32,
-                                    device=_first(params).device),
+            return torch.zeros_like(p, dtype=state_dtype)
+        return {"step": _step0(params),
                 "m": tree_map(z, params), "v": tree_map(z, params)}
 
     def update(grads, state, params):
@@ -128,9 +138,9 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             vv = vv.float()
             step_dir = (mm / c1) / (torch.sqrt(vv / c2) + eps)
             if weight_decay:
-                step_dir = step_dir + torch.where(
+                step_dir = step_dir + on_mesh_of(torch.where(
                     torch.as_tensor(use_wd, device=p.device),
-                    weight_decay, 0.0) * p.float()
+                    weight_decay, 0.0), p) * p.float()
             return -lr_t * step_dir
 
         updates = tree_map(upd, m, v, params, wd_tree)

@@ -876,3 +876,61 @@ def test_kernel_op_fake_matches_the_cuda_output(cuda, name):
         assert f.device.type == "meta"
         assert (f.shape, f.dtype, f.stride()) == (o.shape, o.dtype,
                                                  o.stride())
+
+
+def _flash_on_mesh(model_axis):
+    """A rank of a world of two ``nccl`` ranks: ``flash_attention`` on
+    bf16 DTensor q, k, v laid out on the (2 / model_axis, model_axis)
+    mesh as the rules lay them out (batch on 'data'; heads and kv heads
+    on 'model' where they divide it), for GQA 8/2, MQA 8/1 and GQA 6/3
+    (3 kv heads do not divide 2: the heads are gathered).  Rank 0
+    returns each layout's max abs error against the plain version on
+    the full tensors, the output's placements and its own launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import mesh as mesh_lib
+    dm = mesh_lib.make_device_mesh(model_axis, device_type="cuda")
+    rng = np.random.default_rng(0)
+    out = {}
+    for h, kv in ((8, 2), (8, 1), (6, 3)):
+        full = [torch.as_tensor(rng.normal(size=(4, 256, n, 64)),
+                                dtype=torch.bfloat16, device="cuda")
+                for n in (h, kv, kv)]
+        placed = [distribute_tensor(t, dm, [
+            Shard(0) if name == "data" else
+            (Shard(2) if t.shape[2] % dm.shape[i] == 0 and t.shape[2] > 1
+             else Replicate())
+            for i, name in enumerate(dm.mesh_dim_names)],
+            src_data_rank=None) for t in full]
+        fa.flash_attention.launches = 0
+        got = fa.flash_attention(*placed, causal=True)
+        launches = fa.flash_attention.launches
+        ref = fa.flash_attention_plain(*full, causal=True)
+        bad = ~torch.isclose(got.full_tensor().float(), ref.float(),
+                             atol=1e-5, rtol=2.0 ** -7)
+        out[(h, kv)] = dict(beyond=int(bad.sum()), launches=launches,
+                            placements=[repr(p) for p in got.placements])
+    return out if dist.get_rank() == 0 else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_axis", [2, 1], ids=["1x2", "2x1"])
+def test_flash_sharding_rule_on_two_cards(cards, model_axis):
+    """The op's DTensor sharding rule on two cards, each rank launching
+    the kernel once on its shard: within one bf16 ulp of the plain
+    version (the serve bar), heads split only where each local query
+    head keeps its kv head (GQA 6/3 on two cards: never; DTensor may
+    split the batch over 'model' instead)."""
+    from repro_torch.kernels.flash_attention.ops import heads_split_ok
+    from repro_torch.launch import mesh as mesh_lib
+    got = mesh_lib.launch(_flash_on_mesh, 2, device_type="cuda",
+                          args=(model_axis,), timeout=300)[0]
+    for (h, kv), r in got.items():
+        assert r["beyond"] == 0 and r["launches"] == 1, (h, kv, r)
+        if model_axis == 2 and heads_split_ok(h, kv, 2):
+            assert r["placements"][1] == "Shard(dim=2)", (h, kv, r)
+        elif model_axis == 2:   # gathered heads, or the batch split
+            assert r["placements"][1] != "Shard(dim=2)", (h, kv, r)
+        else:
+            assert r["placements"][0] == "Shard(dim=0)", (h, kv, r)
