@@ -32,6 +32,17 @@ CPU or ``meta`` call whose inputs require grad (with grad enabled) runs
 the differentiable plain version outside the op, and is counted as its
 matmuls.
 
+On a mesh the op takes DTensors through its DTensor sharding rule
+(``_gla_sharding``): the scan is independent per (batch row, head), so
+each rank runs the kernels (the plain version on the CPU) on its own
+rows and heads, which DTensor picks among the layouts the rule offers:
+all replicated, batch split, or heads split (q, k, v, log_w on dim 2,
+bonus on dim 0, the states on dim 1), the last offered where the heads
+divide the mesh's size.  The checks of a CUDA call (strides, staging,
+Dk, the chunk) apply to each rank's shards, the fake and the FLOP
+formula see the local shapes, and the launch counter counts each rank's
+own launches.  A CUDA DTensor call always launches the kernels.
+
 ``gla_chunked_float64_sums`` names the plain version where a check
 holds the kernels to float64 sums: the plain version sums its products
 in float64 itself.
@@ -40,9 +51,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
@@ -141,6 +155,34 @@ def _gla_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, s_fin
 
 
+def _check_cuda(q, k, v, log_w, chunk, bonus, initial_state) -> None:
+    """What the kernels need of the CUDA tensors they are given (on a
+    mesh, a rank's shards): one device, q, k, v and log_w each float32 or
+    bfloat16 with unit stride in D and staged as ``check_staging`` says,
+    Dk <= DKMAX, a chunk that is a multiple of SUB up to CMAX."""
+    tensors = [("q", q), ("k", k), ("v", v), ("log_w", log_w)]
+    extra = [(n, t) for n, t in (("bonus", bonus),
+                                 ("initial_state", initial_state))
+             if t is not None]
+    for name, t in tensors + extra:
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"gla_chunked: {name} is on {t.device}; all "
+                             f"inputs must be on one CUDA device")
+    for name, t in tensors:
+        if t.dtype not in _BF16:
+            raise ValueError(f"gla_chunked: {name} is {t.dtype}; q, k, v "
+                             f"and log_w must each be float32 or bfloat16")
+        if t.stride(3) != 1 and t.shape[3] > 1:
+            raise ValueError(f"gla_chunked: {name} needs unit stride in "
+                             f"D, got strides {t.stride()}")
+        check_staging(name, t)
+    dk = q.shape[3]
+    if dk > DKMAX or chunk % SUB or not SUB <= chunk <= CMAX:
+        raise ValueError(f"gla_chunked: the kernel takes Dk <= {DKMAX} "
+                         f"and a chunk that is a multiple of {SUB} up to "
+                         f"{CMAX}, got Dk {dk}, chunk {chunk}")
+
+
 @torch.library.custom_op("repro_torch::gla_chunked", mutates_args=(),
                          device_types="cuda")
 def _gla_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,6 +190,7 @@ def _gla_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bonus: Optional[torch.Tensor],
             initial_state: Optional[torch.Tensor],
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_cuda(q, k, v, log_w, chunk, bonus, initial_state)
     return _gla_launch(q, k, v, log_w, chunk, variant, bonus, initial_state)
 
 
@@ -185,6 +228,29 @@ def gla_flops(b: int, l: int, h: int, dk: int, dv: int, chunk: int,
     return b * h * n * per
 
 
+@register_sharding(torch.ops.repro_torch.gla_chunked.default)
+def _gla_sharding(q, k, v, log_w, chunk, variant, bonus, initial_state):
+    """The layouts, one mesh dim at a time, in which each rank's call on
+    its shards computes its shard of (y, final state): all replicated;
+    batch split (dim 0 of q, k, v, log_w, y and both states; bonus
+    replicated); heads split (dim 2 of q, k, v, log_w and y, dim 0 of
+    bonus, dim 1 of both states), offered where the heads divide the
+    whole mesh's size.  An input that is None has no placement."""
+    def row(seq, bon, st):
+        return [seq, st, seq, seq, seq, seq, None, None,
+                None if bonus is None else bon,
+                None if initial_state is None else st]
+
+    strategies = [(row(Replicate(), Replicate(), Replicate())[:2],
+                   row(Replicate(), Replicate(), Replicate())[2:]),
+                  (row(Shard(0), Replicate(), Shard(0))[:2],
+                   row(Shard(0), Replicate(), Shard(0))[2:])]
+    if q.shape[2] % math.prod(q.mesh.shape) == 0:
+        split = row(Shard(2), Shard(0), Shard(1))
+        strategies.append((split[:2], split[2:]))
+    return strategies
+
+
 @register_flop_formula(torch.ops.repro_torch.gla_chunked)
 def _gla_flops(q_shape, k_shape, v_shape, log_w_shape, chunk, variant,
                bonus_shape, initial_state_shape, *, out_shape=None,
@@ -206,7 +272,10 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors (each float32 or bfloat16, unit stride in D, staged as
     ``check_staging`` says, on one device; Dk ≤ 64; chunk a multiple of
     16 up to 128) launch the kernels; with grad enabled none may require
-    grad."""
+    grad.  DTensors (on a mesh) go through the op's sharding rule, and
+    the checks apply to each rank's shards; a CPU DTensor that requires
+    grad takes the plain version on each rank's shards
+    (``nn.linear_attn.gla_chunked``)."""
     _check(q, k, v, log_w, variant, bonus, initial_state)
     tensors = [("q", q), ("k", k), ("v", v), ("log_w", log_w)]
     extra = [(n, t) for n, t in (("bonus", bonus),
@@ -219,26 +288,8 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      variant=variant, bonus=bonus,
                                      initial_state=initial_state)
         return _gla_op(q, k, v, log_w, chunk, variant, bonus, initial_state)
-    dev = q.device
-    for name, t in tensors + extra:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"gla_chunked: {name} is on {t.device}; all "
-                             f"inputs must be on one CUDA device")
-    for name, t in tensors:
-        if t.dtype not in _BF16:
-            raise ValueError(f"gla_chunked: {name} is {t.dtype}; q, k, v "
-                             f"and log_w must each be float32 or bfloat16")
-        if t.stride(3) != 1 and t.shape[3] > 1:
-            raise ValueError(f"gla_chunked: {name} needs unit stride in "
-                             f"D, got strides {t.stride()}")
-        check_staging(name, t)
     _build.refuse_grad("ssm_scan", "repro_torch.nn.linear_attn."
                        "gla_chunked", q, k, v, log_w, bonus, initial_state)
-    dk = q.shape[3]
-    if dk > DKMAX or chunk % SUB or not SUB <= chunk <= CMAX:
-        raise ValueError(f"gla_chunked: the kernel takes Dk <= {DKMAX} "
-                         f"and a chunk that is a multiple of {SUB} up to "
-                         f"{CMAX}, got Dk {dk}, chunk {chunk}")
     return _gla_op(q, k, v, log_w, chunk, variant, bonus, initial_state)
 
 

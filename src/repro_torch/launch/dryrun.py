@@ -13,9 +13,11 @@ What a record holds, and how it differs from JAX's:
   * FLOPs and bytes are counted over the whole step
     (``launch/hlo.analyze_step``) and split evenly over the chips
     (``"per_device": "even_split"``): the count runs on ``meta`` with no
-    shard context, and a partitioned count (rank 0 of the step on
-    DTensor over a fake process group) is ROADMAP queue 1, item 6.8b.  ``collective_bytes_per_device`` is null on a mesh larger
-    than one card, 0 on ``1x1``;
+    shard context.  Every family's step runs on DTensor, so a
+    partitioned count (rank 0 of the step on DTensor over a fake process
+    group, ROADMAP queue 1, item 6.8b) can take every config;
+    ``collective_bytes_per_device`` is null on a mesh larger than one
+    card, 0 on ``1x1``;
   * a number here is a reckoning on ``meta`` (``"counted_on"``), not a
     measurement on a device.
 

@@ -6,7 +6,8 @@ On a mesh (``ctx``) the cross-entropy is vocab-parallel: the logits stay
 sharded on 'vocab', their logsumexp is reduced over that axis, and the
 label's logit is picked by a mask, each rank from its own vocab slice
 (no gather across a sharded dim).  ``LMBase.init`` on a ``DeviceMesh``
-draws each leaf's shard on its own rank.
+draws each leaf's shard on its own rank, and ``write_layer`` writes a
+layer of a sharded decode state in place, each rank its own shard.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import InputShape, ModelConfig
@@ -48,6 +49,20 @@ def unstack(tree):
         n = len(next(iter(per_key.values())))
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
     return list(torch.unbind(tree, 0))
+
+
+def write_layer(stack: torch.Tensor, i: int, new: torch.Tensor) -> None:
+    """``stack[i] = new``, in place (a layer-stacked decode state).  On a
+    mesh each rank writes its own shard: ``new`` is laid out as layer
+    ``i`` of ``stack`` (its dim d split as the stack's dim d + 1; the
+    rules never split the layer dim), and the local tensors line up."""
+    if isinstance(stack, DTensor):
+        want = [Shard(p.dim - 1) if isinstance(p, Shard) else Replicate()
+                for p in stack.placements]
+        new = on_mesh_of(new, stack).redistribute(stack.device_mesh,
+                                                  want).to_local()
+        stack = stack.to_local()
+    stack[i] = new.to(stack.dtype)
 
 
 def spec_zeros(specs, device):
@@ -140,14 +155,6 @@ class LMBase:
                 shd.tree_shardings(specs, shd.mesh_view(mesh), rules))
         return P.materialize(self.param_specs(), gen,
                              device=resolve_device(device))
-
-    def refuse_mesh(self, ctx: ShardCtx, item: str) -> None:
-        """Raise where a family that has no mesh execution yet is given a
-        mesh of more than one device (``ROADMAP.md`` queue 1, ``item``)."""
-        if ctx.size > 1:
-            raise NotImplementedError(
-                f"{self.cfg.name}: running on a mesh of {ctx.size} devices "
-                f"is not ported yet (ROADMAP.md queue 1, item {item})")
 
     # ---- training ----
     def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):

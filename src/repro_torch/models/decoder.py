@@ -13,10 +13,11 @@ that requires grad); with ``cfg.remat`` each layer is recomputed in the
 backward pass, as JAX's ``jax.checkpoint`` over its scanned block.
 
 On a mesh (``ctx``, a ``ShardCtx`` over a ``DeviceMesh``, with DTensor
-parameters and inputs) the dense family runs as a DTensor program,
+parameters and inputs) every family runs as a DTensor program,
 constrained at JAX's points (``src/repro/models/decoder.py:83, 110,
-135, 183``).  The MoE family raises there: an ``expert`` axis is
-``ROADMAP.md`` queue 1, item 6.8d.
+135, 183``); the MoE layers keep their dispatch on each rank's rows and
+run the expert MLP as DTensor products (``nn/moe.py``), under the
+default rules or ``EXPERT_PARALLEL_RULES``.
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ class DecoderLM(LMBase):
                                    device=x.device), x), None
         return moe_lib.moe_mlp_routed(p["moe"], x, cfg.moe,
                                       cfg.mlp_activation, dtype,
-                                      expert_ids=pin)
+                                      expert_ids=pin, ctx=ctx)
 
     def _block(self, p, x, positions, window, dtype, pin=None,
                ctx: ShardCtx = NO_SHARD):
@@ -126,10 +127,6 @@ class DecoderLM(LMBase):
         return params["embedding"] if self.cfg.tie_embeddings \
             else params["unembed"]
 
-    def _check_mesh(self, ctx: ShardCtx) -> None:
-        if self.cfg.moe is not None:
-            self.refuse_mesh(ctx, "6.8d")
-
     def _hidden(self, params, batch, ctx: ShardCtx = NO_SHARD,
                 loss: bool = False):
         """``_backbone`` over ``batch["tokens"]`` (after ``batch["embeds"]``
@@ -139,7 +136,6 @@ class DecoderLM(LMBase):
         MoE routing (``nn.moe.moe_mlp``).  ``loss`` constrains the
         embeddings as JAX's ``loss`` does (``:110``)."""
         cfg = self.cfg
-        self._check_mesh(ctx)
         x = self._embed_inputs(params, batch, getattr(torch, cfg.dtype))
         b, s, _ = x.shape
         positions = on_mesh_of(torch.arange(s, device=x.device)
@@ -170,13 +166,13 @@ class DecoderLM(LMBase):
                              "batch", None, "vocab")
 
     @torch.no_grad()
-    def routing(self, params, batch):
+    def routing(self, params, batch, ctx: ShardCtx = NO_SHARD):
         """The expert ids (L, B, S, k) that ``prefill`` of ``batch`` routes
         each MoE layer's tokens to: what ``batch["expert_ids"]`` takes to
-        replay this routing on another attention route."""
+        replay this routing on another attention route (or mesh)."""
         if self.cfg.moe is None:
             raise ValueError(f"{self.cfg.name} has no MoE layers")
-        return torch.stack(self._hidden(params, batch)[2])
+        return torch.stack(self._hidden(params, batch, ctx)[2])
 
     def cache_specs(self, batch: int, max_len: int):
         cfg = self.cfg
@@ -197,7 +193,6 @@ class DecoderLM(LMBase):
         """One token for every row.  ``cache`` is updated in place and
         returned (see ``attn.decode_attend``)."""
         cfg = self.cfg
-        self._check_mesh(ctx)
         dtype = getattr(torch, cfg.dtype)
         x = embed(batch["token"], params["embedding"], dtype)
         pos = batch["pos"]

@@ -8,6 +8,14 @@ per layer; cross KV is computed once from the encoder output
 (``build_cross_cache``).  Every attention here takes the plain route, as
 in JAX, whose encoder-decoder passes no ``impl``: ``cfg.attention_impl``
 is not read.
+
+On a mesh (``ctx``, a ``ShardCtx`` over a ``DeviceMesh``, with DTensor
+parameters and inputs) it runs as a DTensor program constrained at
+JAX's points (``src/repro/models/encdec.py:71, 101, 138, 202``): every
+attention on each rank's rows and heads (``nn.attention._per_shard``),
+the self-attention cache written rank by rank
+(``nn.attention._write_rows``), the cross cache laid out on ("layers",
+"batch", None, "kv_heads", "qkv") as ``cache_specs`` says.
 """
 from __future__ import annotations
 
@@ -23,8 +31,8 @@ from repro_torch.nn import attention as attn
 from repro_torch.nn import mlp as mlp_lib
 from repro_torch.nn import param as P
 from repro_torch.nn.layers import (NO_SHARD, ShardCtx, embed,
-                                   embedding_spec, rmsnorm, rmsnorm_spec,
-                                   unembed)
+                                   embedding_spec, on_mesh_of, rmsnorm,
+                                   rmsnorm_spec, unembed)
 
 
 def _enc_layer_specs(cfg):
@@ -73,24 +81,26 @@ class EncDecModel(LMBase):
                     head_dim=cfg.resolved_head_dim(),
                     rope_theta=cfg.rope_theta)
 
-    def _enc_block(self, lp, h, positions, dt):
+    def _enc_block(self, lp, h, positions, dt, ctx: ShardCtx = NO_SHARD):
         cfg = self.cfg
+        h = ctx.constrain(h, "batch", None, "embed_act")
         h = h + attn.attend(lp["attn"], rmsnorm(h, lp["ln1"], cfg.norm_eps),
-                            positions, causal=False, dtype=dt,
+                            positions, causal=False, ctx=ctx, dtype=dt,
                             **self._attn_kw())
         return h + mlp_lib.mlp(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps),
-                               cfg.mlp_activation, dt)
+                               cfg.mlp_activation, dt, ctx)
 
-    def _encode(self, params, src):
+    def _encode(self, params, src, ctx: ShardCtx = NO_SHARD):
         """The encoder memory (B, S_enc, D) of frame embeddings ``src``."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         x = src.to(dt)
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = on_mesh_of(torch.arange(s, device=x.device)
+                               .expand(b, s), x)
         for lp in unstack(params["enc_layers"]):
             x = maybe_checkpoint(cfg.remat, self._enc_block, lp, x,
-                                 positions, dt)
+                                 positions, dt, ctx)
         return rmsnorm(x, params["enc_ln_f"], cfg.norm_eps)
 
     def _cross_kv(self, lp, memory, dt):
@@ -100,47 +110,50 @@ class EncDecModel(LMBase):
                          lp["cross_attn"]["wv"].to(dt))
         return k, v
 
-    def _dec_block(self, lp, h, memory, positions, dt):
+    def _dec_block(self, lp, h, memory, positions, dt,
+                   ctx: ShardCtx = NO_SHARD):
         cfg = self.cfg
+        h = ctx.constrain(h, "batch", None, "embed_act")
         h = h + attn.attend(lp["self_attn"],
                             rmsnorm(h, lp["ln1"], cfg.norm_eps), positions,
-                            causal=True, dtype=dt, **self._attn_kw())
+                            causal=True, ctx=ctx, dtype=dt,
+                            **self._attn_kw())
         h = h + attn.attend(lp["cross_attn"],
                             rmsnorm(h, lp["ln_x"], cfg.norm_eps), positions,
                             cross_kv=self._cross_kv(lp, memory, dt),
-                            dtype=dt, **self._attn_kw())
+                            ctx=ctx, dtype=dt, **self._attn_kw())
         return h + mlp_lib.mlp(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps),
-                               cfg.mlp_activation, dt)
+                               cfg.mlp_activation, dt, ctx)
 
-    def _decode_seq(self, params, tokens, memory):
+    def _decode_seq(self, params, tokens, memory, ctx: ShardCtx = NO_SHARD):
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         x = embed(tokens, params["embedding"], dt)
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = on_mesh_of(torch.arange(s, device=x.device)
+                               .expand(b, s), x)
         for lp in unstack(params["dec_layers"]):
             x = maybe_checkpoint(cfg.remat, self._dec_block, lp, x, memory,
-                                 positions, dt)
+                                 positions, dt, ctx)
         return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
     def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):
         """(ce, {"ce", "aux": 0}) of a {"src_embeds", "tokens", "labels"}
         batch."""
-        self.refuse_mesh(ctx, "6.8d")
-        memory = self._encode(params, batch["src_embeds"])
-        h = self._decode_seq(params, batch["tokens"], memory)
-        ce = chunked_softmax_xent(h, params["unembed"], batch["labels"])
-        return ce, {"ce": ce,
-                    "aux": torch.zeros((), dtype=torch.float32,
-                                       device=h.device)}
+        memory = self._encode(params, batch["src_embeds"], ctx)
+        h = self._decode_seq(params, batch["tokens"], memory, ctx)
+        ce = chunked_softmax_xent(h, params["unembed"], batch["labels"],
+                                  ctx=ctx)
+        return ce, {"ce": ce, "aux": on_mesh_of(torch.zeros(
+            (), dtype=torch.float32, device=h.device), h)}
 
     @torch.no_grad()
     def prefill(self, params, batch, ctx: ShardCtx = NO_SHARD):
         """Last-token logits (B, 1, V) of {"src_embeds", "tokens"}."""
-        self.refuse_mesh(ctx, "6.8d")
-        memory = self._encode(params, batch["src_embeds"])
-        h = self._decode_seq(params, batch["tokens"], memory)
-        return unembed(h[:, -1:], params["unembed"])
+        memory = self._encode(params, batch["src_embeds"], ctx)
+        h = self._decode_seq(params, batch["tokens"], memory, ctx)
+        return ctx.constrain(unembed(h[:, -1:], params["unembed"]),
+                             "batch", None, "vocab")
 
     # ---------------------------------------------------------------- decode
     def cache_specs(self, batch: int, max_len: int):
@@ -163,22 +176,25 @@ class EncDecModel(LMBase):
                           resolve_device(device))
 
     @torch.no_grad()
-    def build_cross_cache(self, params, memory):
+    def build_cross_cache(self, params, memory, ctx: ShardCtx = NO_SHARD):
         """{"k", "v"} (L, B, S_enc, KV, hd): every decoder layer's cross
-        keys and values of the encoder memory."""
+        keys and values of the encoder memory, on a mesh laid out as
+        ``cache_specs`` lays the cross cache out."""
         dt = getattr(torch, self.cfg.dtype)
         kv = [self._cross_kv(take_layer(params["dec_layers"], i), memory, dt)
               for i in range(self.cfg.num_layers)]
-        return {"k": torch.stack([k for k, _ in kv]),
-                "v": torch.stack([v for _, v in kv])}
+        return {name: ctx.constrain(torch.stack([t[j] for t in kv]),
+                                    "layers", "batch", None, "kv_heads",
+                                    "qkv")
+                for j, name in enumerate(("k", "v"))}
 
     @torch.no_grad()
     def decode_step(self, params, cache, batch,
                     window: Optional[int] = None,
                     ctx: ShardCtx = NO_SHARD):
         """One token for every row against ``cache["cross"]``; the
-        self-attention cache is updated in place and returned."""
-        self.refuse_mesh(ctx, "6.8d")
+        self-attention cache is updated in place and returned (on a
+        mesh, each rank its own rows)."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         h = embed(batch["token"], params["embedding"], dt)
@@ -187,20 +203,21 @@ class EncDecModel(LMBase):
             lp = take_layer(params["dec_layers"], i)
             a, _ = attn.decode_attend(
                 lp["self_attn"], rmsnorm(h, lp["ln1"], cfg.norm_eps),
-                take_layer(cache["self"], i), pos, dtype=dt,
+                take_layer(cache["self"], i), pos, ctx=ctx, dtype=dt,
                 **self._attn_kw())
             h = h + a
             cross = take_layer(cache["cross"], i)
             c, _ = attn.decode_attend(
                 lp["cross_attn"], rmsnorm(h, lp["ln_x"], cfg.norm_eps),
-                None, pos, dtype=dt, cross_kv=(cross["k"], cross["v"]),
-                **self._attn_kw())
+                None, pos, ctx=ctx, dtype=dt,
+                cross_kv=(cross["k"], cross["v"]), **self._attn_kw())
             h = h + c
             h = h + mlp_lib.mlp(lp["mlp"], rmsnorm(h, lp["ln2"],
                                                    cfg.norm_eps),
-                                cfg.mlp_activation, dt)
+                                cfg.mlp_activation, dt, ctx)
         h = rmsnorm(h, params["ln_f"], cfg.norm_eps)
-        return unembed(h, params["unembed"]), cache
+        return ctx.constrain(unembed(h, params["unembed"]),
+                             "batch", None, "vocab"), cache
 
     def input_specs(self, shape):
         """The dry run's inputs: {"src_embeds", "tokens"[, "labels"]}, or

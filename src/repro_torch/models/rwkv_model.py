@@ -11,6 +11,15 @@ weight casts whatever ``cfg.dtype`` (the activations') is.  ``loss`` runs the WK
 ``impl="plain"`` (``nn.linear_attn.gla_chunked``, differentiable), the
 path JAX's ``loss`` takes through its jnp scan; with ``cfg.remat`` each
 layer is recomputed in the backward pass.
+
+On a mesh (``ctx``, a ``ShardCtx`` over a ``DeviceMesh``, with DTensor
+parameters and inputs) it runs as a DTensor program constrained at
+JAX's points (``src/repro/models/rwkv_model.py:48, 91, 103, 128``): r,
+k and v come out of their ("embed", "heads") projections with their
+heads split on 'model', so the scan takes the heads split through the
+``ssm_scan`` op's sharding rule (``impl="plain"``: each rank's rows and
+heads, ``nn.linear_attn``), and decode writes each rank's shard of the
+three-part state in place (``write_layer``).
 """
 from __future__ import annotations
 
@@ -19,12 +28,12 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import (LMBase, chunked_softmax_xent,
                                       maybe_checkpoint, stack_specs,
-                                      take_layer, unstack)
+                                      take_layer, unstack, write_layer)
 from repro_torch.nn import param as P
 from repro_torch.nn import rwkv
 from repro_torch.nn.layers import (NO_SHARD, ShardCtx, embed,
-                                   embedding_spec, rmsnorm, rmsnorm_spec,
-                                   unembed)
+                                   embedding_spec, on_mesh_of, rmsnorm,
+                                   rmsnorm_spec, unembed)
 
 
 def _layer_specs(cfg):
@@ -54,24 +63,25 @@ class RWKVModel(LMBase):
         x = embed(tokens, params["embedding"], getattr(torch, cfg.dtype))
         return rmsnorm(x, params["ln_in"], cfg.norm_eps)
 
-    def _layer(self, lp, x, impl):
+    def _layer(self, lp, x, impl, ctx: ShardCtx = NO_SHARD):
         cfg = self.cfg
-        zero = x.new_zeros(x.shape[0], cfg.d_model)     # no previous token
+        x = ctx.constrain(x, "batch", None, "embed_act")
+        zero = torch.zeros_like(x[:, 0])                # no previous token
         a, _ = rwkv.time_mix(
             lp["att"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
-            prev_x=zero, state=None, impl=impl)
+            prev_x=zero, state=None, ctx=ctx, impl=impl)
         x = x + a
         f, _ = rwkv.channel_mix(
             lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps), prev_x=zero)
         return x + f
 
-    def _backbone(self, params, x, impl="kernel"):
+    def _backbone(self, params, x, impl="kernel", ctx: ShardCtx = NO_SHARD):
         """The layers from the zero state; returns the final-normed
         hidden (JAX's also returns the new state, which ``prefill``
         drops).  ``impl``: the WKV scan's (``rwkv.time_mix``)."""
         cfg = self.cfg
         for lp in unstack(params["layers"]):
-            x = maybe_checkpoint(cfg.remat, self._layer, lp, x, impl)
+            x = maybe_checkpoint(cfg.remat, self._layer, lp, x, impl, ctx)
         return rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
     def cache_specs(self, batch: int, max_len: int):
@@ -103,26 +113,27 @@ class RWKVModel(LMBase):
 
     # ------------------------------------------------------------ training
     def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):
-        self.refuse_mesh(ctx, "6.8c")
-        h = self._backbone(params, self._embed(params, batch["tokens"]),
-                           impl="plain")
-        ce = chunked_softmax_xent(h, params["unembed"], batch["labels"])
-        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
-                                                 device=h.device)}
+        x = ctx.constrain(self._embed(params, batch["tokens"]),
+                          "batch", None, None)
+        h = self._backbone(params, x, impl="plain", ctx=ctx)
+        ce = chunked_softmax_xent(h, params["unembed"], batch["labels"],
+                                  ctx=ctx)
+        return ce, {"ce": ce, "aux": on_mesh_of(torch.zeros(
+            (), dtype=torch.float32, device=h.device), h)}
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
     def prefill(self, params, batch, ctx: ShardCtx = NO_SHARD):
-        self.refuse_mesh(ctx, "6.8c")
-        h = self._backbone(params, self._embed(params, batch["tokens"]))
-        return unembed(h[:, -1:], params["unembed"])
+        h = self._backbone(params, self._embed(params, batch["tokens"]),
+                           ctx=ctx)
+        return ctx.constrain(unembed(h[:, -1:], params["unembed"]),
+                             "batch", None, "vocab")
 
     @torch.no_grad()
     def decode_step(self, params, cache, batch, ctx: ShardCtx = NO_SHARD):
         """One token for every row (``batch["pos"]`` is not needed: the
         state carries the history).  ``cache`` is updated in place and
-        returned."""
-        self.refuse_mesh(ctx, "6.8c")
+        returned (on a mesh, each rank its own shard)."""
         cfg = self.cfg
         x = self._embed(params, batch["token"])
         prev_att, wkv, prev_ffn = cache
@@ -136,6 +147,8 @@ class RWKVModel(LMBase):
                 lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
                 prev_x=prev_ffn[i])
             x = x + f
-            prev_att[i], wkv[i], prev_ffn[i] = na, nw, nf
+            for stack, new in ((prev_att, na), (wkv, nw), (prev_ffn, nf)):
+                write_layer(stack, i, new)
         h = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-        return unembed(h, params["unembed"]), cache
+        return ctx.constrain(unembed(h, params["unembed"]),
+                             "batch", None, "vocab"), cache

@@ -20,6 +20,15 @@ whatever ``scan_impl`` is, the path JAX's ``loss`` takes through its jnp
 scan; its shared attention follows ``cfg.attention_impl``.  With
 ``cfg.remat`` each mamba layer is recomputed in the backward pass, as
 JAX checkpoints its scanned mamba body.
+
+On a mesh (``ctx``, a ``ShardCtx`` over a ``DeviceMesh``, with DTensor
+parameters and inputs) it runs as a DTensor program constrained at
+JAX's points (``src/repro/models/zamba.py:100, 146, 161, 191``), the
+mamba layers' scans on each rank's heads (``nn/mamba.py``), the shared
+attention through ``nn/attention`` (the flash op's sharding rule on the
+kernel route, the KV ring buffer written rank by rank) and decode's
+conv and SSD states written in place, each rank its own shard
+(``write_layer``).
 """
 from __future__ import annotations
 
@@ -28,14 +37,15 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import (LMBase, chunked_softmax_xent,
                                       maybe_checkpoint, spec_zeros,
-                                      stack_specs, take_layer, unstack)
+                                      stack_specs, take_layer, unstack,
+                                      write_layer)
 from repro_torch.nn import attention as attn
 from repro_torch.nn import mamba
 from repro_torch.nn import mlp as mlp_lib
 from repro_torch.nn import param as P
 from repro_torch.nn.layers import (NO_SHARD, ShardCtx, embed,
-                                   embedding_spec, rmsnorm, rmsnorm_spec,
-                                   unembed)
+                                   embedding_spec, on_mesh_of, rmsnorm,
+                                   rmsnorm_spec, unembed)
 
 
 def _mamba_layer_specs(cfg):
@@ -81,14 +91,15 @@ class ZambaModel(LMBase):
         }
 
     # --------------------------------------------------------------- shared
-    def _shared_attn(self, sp, x, positions, kv_cache=None, pos=None):
+    def _shared_attn(self, sp, x, positions, kv_cache=None, pos=None,
+                     ctx: ShardCtx = NO_SHARD):
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         hn = rmsnorm(x, sp["ln1"], cfg.norm_eps)
         kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                   head_dim=cfg.resolved_head_dim(),
                   rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-                  dtype=dt)
+                  ctx=ctx, dtype=dt)
         if kv_cache is None:
             a = attn.attend(sp["attn"], hn, positions, causal=True,
                             impl=cfg.attention_impl, **kw)
@@ -96,17 +107,18 @@ class ZambaModel(LMBase):
             a, _ = attn.decode_attend(sp["attn"], hn, kv_cache, pos, **kw)
         x = x + a
         y = mlp_lib.mlp(sp["mlp"], rmsnorm(x, sp["ln2"], cfg.norm_eps),
-                        cfg.mlp_activation, dt)
+                        cfg.mlp_activation, dt, ctx)
         return x + y
 
-    def _mamba_layer(self, lp, x, impl):
+    def _mamba_layer(self, lp, x, impl, ctx: ShardCtx = NO_SHARD):
         cfg = self.cfg
+        x = ctx.constrain(x, "batch", None, "embed_act")
         m, _ = mamba.mamba_block(lp["mix"], rmsnorm(x, lp["ln"], cfg.norm_eps),
-                                 cfg, impl=impl)
+                                 cfg, ctx=ctx, impl=impl)
         return x + m
 
     def _backbone(self, params, x, positions, cache=None, pos=None,
-                  impl=None):
+                  impl=None, ctx: ShardCtx = NO_SHARD):
         """The groups of mamba layers, each followed by its shared block;
         from the zero state (prefill: the new states are dropped, as JAX's
         ``prefill`` drops them) or one decode step on ``cache``, updated
@@ -121,40 +133,52 @@ class ZambaModel(LMBase):
                 lp = layers[i]
                 if cache is None:
                     x = maybe_checkpoint(cfg.remat, self._mamba_layer, lp,
-                                         x, impl)
+                                         x, impl, ctx)
                     continue
                 conv, ssm = cache["mamba"]
-                m, (conv[i], ssm[i]) = mamba.mamba_decode(
+                x = ctx.constrain(x, "batch", None, "embed_act")
+                m, (nc, ns) = mamba.mamba_decode(
                     lp["mix"], rmsnorm(x, lp["ln"], cfg.norm_eps), cfg,
-                    state=(conv[i], ssm[i]))
+                    state=(conv[i], ssm[i]), ctx=ctx)
+                write_layer(conv, i, nc)
+                write_layer(ssm, i, ns)
                 x = x + m
             sp = shared[gi % nsb]
             kvc = None if cache is None else take_layer(cache["kv"], gi)
-            x = self._shared_attn(sp, x, positions, kv_cache=kvc, pos=pos)
+            x = self._shared_attn(sp, x, positions, kv_cache=kvc, pos=pos,
+                                  ctx=ctx)
         return x
 
-    def _hidden(self, params, tokens, impl=None):
+    def _hidden(self, params, tokens, impl=None, ctx: ShardCtx = NO_SHARD,
+                loss: bool = False):
+        """The final-normed hidden of ``tokens``; ``loss`` constrains the
+        embeddings as JAX's ``loss`` does."""
         cfg = self.cfg
         x = embed(tokens, params["embedding"], getattr(torch, cfg.dtype))
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
-        return rmsnorm(self._backbone(params, x, positions, impl=impl),
+        positions = on_mesh_of(torch.arange(s, device=x.device)
+                               .expand(b, s), x)
+        if loss:
+            x = ctx.constrain(x, "batch", None, None)
+        return rmsnorm(self._backbone(params, x, positions, impl=impl,
+                                      ctx=ctx),
                        params["ln_f"], cfg.norm_eps)
 
     # ------------------------------------------------------------ training
     def loss(self, params, batch, ctx: ShardCtx = NO_SHARD):
-        self.refuse_mesh(ctx, "6.8c")
-        h = self._hidden(params, batch["tokens"], impl="plain")
-        ce = chunked_softmax_xent(h, params["unembed"], batch["labels"])
-        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
-                                                 device=h.device)}
+        h = self._hidden(params, batch["tokens"], impl="plain", ctx=ctx,
+                         loss=True)
+        ce = chunked_softmax_xent(h, params["unembed"], batch["labels"],
+                                  ctx=ctx)
+        return ce, {"ce": ce, "aux": on_mesh_of(torch.zeros(
+            (), dtype=torch.float32, device=h.device), h)}
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
     def prefill(self, params, batch, ctx: ShardCtx = NO_SHARD):
-        self.refuse_mesh(ctx, "6.8c")
-        h = self._hidden(params, batch["tokens"])
-        return unembed(h[:, -1:], params["unembed"])
+        h = self._hidden(params, batch["tokens"], ctx=ctx)
+        return ctx.constrain(unembed(h[:, -1:], params["unembed"]),
+                             "batch", None, "vocab")
 
     def cache_specs(self, batch: int, max_len: int):
         cfg = self.cfg
@@ -177,12 +201,14 @@ class ZambaModel(LMBase):
     def decode_step(self, params, cache, batch, ctx: ShardCtx = NO_SHARD):
         """One token for every row.  ``cache`` is updated in place and
         returned: each mamba layer's conv and SSD state, and each group's
-        KV ring buffer (window ``cfg.sliding_window``)."""
-        self.refuse_mesh(ctx, "6.8c")
+        KV ring buffer (window ``cfg.sliding_window``); on a mesh each
+        rank writes its own shard."""
         cfg = self.cfg
         x = embed(batch["token"], params["embedding"],
                   getattr(torch, cfg.dtype))
         pos = batch["pos"]
-        h = self._backbone(params, x, pos[:, None], cache=cache, pos=pos)
+        h = self._backbone(params, x, pos[:, None], cache=cache, pos=pos,
+                           ctx=ctx)
         h = rmsnorm(h, params["ln_f"], cfg.norm_eps)
-        return unembed(h, params["unembed"]), cache
+        return ctx.constrain(unembed(h, params["unembed"]),
+                             "batch", None, "vocab"), cache

@@ -15,17 +15,21 @@ constrained at JAX's points (``src/repro/nn/attention.py:131-132, 151,
 DTensors on the activations' mesh, the flash kernel runs on each rank's
 shard through its sharding rule (``kernels/flash_attention/ops.py``),
 and decode writes each rank's own rows of a cache sharded on batch and
-kv heads.
+kv heads.  Attention is independent per (batch, head), so what DTensor
+cannot run as it stands (the dot and chunked routes, ``_repeat_kv``,
+the flash kernel's plain version that CPU training on a mesh takes)
+runs on each rank's rows and heads (``nn.layers.per_rank``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.nn.layers import NO_SHARD, ShardCtx, apply_rope, on_mesh_of
+from repro_torch.nn.layers import (NO_SHARD, ShardCtx, apply_rope, kept,
+                                   on_mesh_of, per_rank)
 from repro_torch.nn.param import ParamSpec
 
 NEG_INF = -2.0e9
@@ -50,11 +54,10 @@ def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
         return k
     if not isinstance(k, DTensor):
         return k.repeat_interleave(rep, dim=2)
-    shape = k.shape[:2] + (num_heads,) + k.shape[3:]
-    return DTensor.from_local(
-        k.to_local().repeat_interleave(rep, dim=2), k.device_mesh,
-        k.placements, run_check=False, shape=shape,
-        stride=torch.empty(shape, device="meta").stride())
+    return per_rank(lambda t: t.repeat_interleave(rep, dim=2),
+                    k.device_mesh, [(k, k.placements)],
+                    [(k.placements, k.shape[:2] + (num_heads,)
+                      + k.shape[3:])])
 
 
 # fp32 score elements ``dot_attention`` holds at once (4 GiB): past
@@ -72,21 +75,34 @@ def _per_shard(fn, q, k, v, mask=None):
     stay; any other split of q is gathered first."""
     if not isinstance(q, DTensor):
         return fn(q, k, v) if mask is None else fn(q, k, v, mask)
-    dm = q.device_mesh
-    keep = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
-            for p in q.placements]
-    q, k, v = (t.redistribute(dm, keep) for t in (q, k, v))
-    args = [q.to_local(), k.to_local(), v.to_local()]
+    keep = kept(q, 0, 2)
+    inputs = [(t, keep) for t in (q, k, v)]
     if mask is not None:
-        mask = on_mesh_of(mask, q).redistribute(dm, [
-            p if isinstance(p, Shard) and p.dim == 0 and mask.shape[0] > 1
-            else Replicate() for p in keep])
-        args.append(mask.to_local())
-    out = fn(*args).contiguous()        # the strides given below
-    shape = q.shape[:3] + v.shape[3:]
-    return DTensor.from_local(out, dm, keep, run_check=False, shape=shape,
-                              stride=torch.empty(shape,
-                                                 device="meta").stride())
+        inputs.append((on_mesh_of(mask, q), [
+            p if mask.shape[0] > 1 else Replicate()
+            for p in kept(q, 0)]))
+    # made contiguous: the strides ``per_rank`` gives
+    return per_rank(lambda *a: fn(*a).contiguous(), q.device_mesh, inputs,
+                    [(keep, q.shape[:3] + v.shape[3:])])
+
+
+def _flash_plain_per_rank(q, k, v, window):
+    """The flash kernel's plain version (differentiable, causal) on each
+    rank's shards of DTensors q, k, v, in a layout the op's sharding
+    rule offers: q's batch splits kept, its heads split kept where
+    ``heads_split_ok`` holds (K/V split alike, or replicated with their
+    gradient a partial sum when they have one head), any other split
+    gathered."""
+    heads = fa_ops.heads_split_ok(q.shape[2], k.shape[2],
+                                  q.device_mesh.size())
+    lq = kept(q, 0, 2) if heads else kept(q, 0)
+    mqa = [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+           for p in lq]
+    kv = (mqa, [Partial() if isinstance(p, Shard) and p.dim == 2 else p
+                for p in lq]) if k.shape[2] == 1 else (lq,)
+    return per_rank(lambda *a: fa_ops.flash_attention_plain(
+        *a, causal=True, window=window).contiguous(), q.device_mesh,
+                    [(q, lq), (k, *kv), (v, *kv)], [(lq, q.shape)])
 
 
 def _dot_rows(q, k, v, mask, dtype):
@@ -202,7 +218,14 @@ def attend(params, x, positions, *, num_heads, num_kv_heads, head_dim,
     sk = k.shape[1]
 
     if impl == "kernel" and cross_kv is None and causal:
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+        if isinstance(q, DTensor) and q.device.type != "cuda" \
+                and torch.is_grad_enabled() \
+                and any(t.requires_grad for t in (q, k, v)):
+            # CPU training on a mesh: the plain version, per rank
+            out = _flash_plain_per_rank(q, k, v, window)
+        else:
+            out = fa_ops.flash_attention(q, k, v, causal=True,
+                                         window=window)
     elif impl == "chunked" and cross_kv is None and causal:
         out = chunked_attention(q, _repeat_kv(k, num_heads),
                                 _repeat_kv(v, num_heads), causal=True,

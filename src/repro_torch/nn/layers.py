@@ -12,7 +12,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.nn import sharding as shd
 from repro_torch.nn.param import ParamSpec
@@ -48,6 +48,65 @@ def on_mesh_of(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     dm = like.device_mesh
     return DTensor.from_local(t, dm, [Replicate()] * dm.ndim,
                               run_check=False)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def kept(t: DTensor, *dims: int):
+    """``t``'s placements with its splits of ``dims`` kept and any other
+    replaced by ``Replicate``."""
+    return [p if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in t.placements]
+
+
+def per_rank(fn, mesh, inputs, outputs):
+    """``fn`` on each rank's local tensors: the per-rank route of a
+    function that is independent per batch row or head (attention, the
+    linear-attention scans, the MoE bookkeeping), where DTensor's own
+    strategies would gather, flatten a split dim, or refuse.
+
+    ``inputs``: one (tensor, layout) or (tensor, layout, gradient
+    layout) for each argument of ``fn``.  Each tensor (a plain one taken
+    as replicated on ``mesh``; None passed as None) is redistributed to
+    its layout and handed to ``fn`` as its local tensor; its gradient
+    comes back laid out as the gradient layout (by default the layout;
+    ``Partial`` where a rank's use of an input it holds whole gives a
+    part of its gradient), made contiguous: DTensor gives a local
+    gradient the global shape's contiguous strides as its metadata, and
+    one laid out otherwise (a per-rank product's) breaks a later
+    ``view`` of it (torch 2.11 on the card).  ``outputs``: one (layout,
+    global shape) for each result of ``fn`` (a tensor or a tuple),
+    given back as DTensors with the shape's contiguous strides as their
+    metadata.  With ``mesh`` None, ``fn`` on the tensors themselves."""
+    if mesh is None:
+        return fn(*(t for t, *_ in inputs))
+    args = []
+    for t, layout, *grads in inputs:
+        if t is not None:
+            if not isinstance(t, DTensor):
+                t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                       run_check=False)
+            t = _ContiguousGrad.apply(t.redistribute(mesh, layout).to_local(
+                grad_placements=grads[0] if grads else None))
+        args.append(t)
+    res = fn(*args)
+    one = not isinstance(res, tuple)
+    out = tuple(
+        DTensor.from_local(r, mesh, layout, run_check=False,
+                           shape=torch.Size(shape),
+                           stride=torch.empty(shape, device="meta").stride())
+        for r, (layout, shape) in zip((res,) if one else res, outputs))
+    return out[0] if one else out
 
 
 # ---------------------------------------------------------------- rmsnorm

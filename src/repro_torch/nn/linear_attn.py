@@ -47,6 +47,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.nn.layers import per_rank
 
 SUB = 16        # rows of a sub-chunk (its gcd with chunk, if not a divisor)
 VARIANTS = ("mamba", "rwkv")
@@ -66,6 +69,40 @@ def _sum64(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.double(), b.double()).float()
 
 
+def _on_shards(fn, q, k, v, log_w, state, bonus, head: int):
+    """``fn(q, k, v, log_w, state, bonus)`` on each rank's own rows and
+    heads when q is a DTensor (``per_rank``), else on the tensors
+    themselves.  q, k, log_w and v have batch on dim 0 and heads on dim
+    ``head``; state (B, H, Dk, Dv) has them on dims 0 and 1, bonus (H,
+    Dk) its heads on dim 0.  Each mesh dim that splits q's batch or
+    heads splits every input's (bonus replicated under a batch split,
+    its gradient then a sum over those ranks); any other split is
+    gathered.  ``fn`` returns (y laid out as q, state)."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, log_w, state, bonus)
+    roles = [p.dim if isinstance(p, Shard) and p.dim in (0, head) else None
+             for p in q.placements]
+
+    def layout(batch, heads):
+        pl = [Shard(batch) if r == 0 and batch is not None
+              else Shard(heads) if r == head else Replicate()
+              for r in roles]
+        # a rank's rows give a partial sum of the gradient of an input
+        # it holds whole along a split of the rows (the bonus)
+        return pl, [Partial() if r is not None and not isinstance(p, Shard)
+                    else p for r, p in zip(roles, pl)]
+
+    seq, st = layout(0, head), layout(0, 1)
+    y_shape = q.shape[:head + 1] + v.shape[head + 1:]
+    s_shape = q.shape[:1] + q.shape[head:head + 1] + q.shape[-1:] \
+        + v.shape[-1:]
+    return per_rank(
+        lambda *a: tuple(t.contiguous() for t in fn(*a)), q.device_mesh,
+        [(t, *seq) for t in (q, k, v, log_w)]
+        + [(state, *st), (bonus, *layout(None, 0))],
+        [(seq[0], y_shape), (st[0], s_shape)])
+
+
 def gla_chunked(q, k, v, log_w, *, chunk: int, variant: str = "mamba",
                 bonus: Optional[torch.Tensor] = None,
                 initial_state: Optional[torch.Tensor] = None,
@@ -74,7 +111,16 @@ def gla_chunked(q, k, v, log_w, *, chunk: int, variant: str = "mamba",
     (H, Dk), zeros if None; initial_state: (B, H, Dk, Dv) or None.
 
     Returns (y (B, L, H, Dv) in v's dtype, final_state (B, H, Dk, Dv)
-    fp32).  Any L: the last chunk is masked as JAX pads it."""
+    fp32).  Any L: the last chunk is masked as JAX pads it.  DTensors:
+    each rank its own rows and heads (``_on_shards``)."""
+    return _on_shards(
+        lambda q, k, v, log_w, s, u: _gla_chunked(
+            q, k, v, log_w, chunk=chunk, variant=variant, bonus=u,
+            initial_state=s),
+        q, k, v, log_w, initial_state, bonus, head=2)
+
+
+def _gla_chunked(q, k, v, log_w, *, chunk, variant, bonus, initial_state):
     if variant not in VARIANTS:
         raise ValueError(f"gla_chunked: variant {variant!r} not in "
                          f"{VARIANTS}")
@@ -141,7 +187,15 @@ def gla_decode(q, k, v, log_w, state, *, variant: str = "mamba",
     """Single-token recurrent step.
 
     q, k, log_w: (B, H, Dk); v: (B, H, Dv); state: (B, H, Dk, Dv) fp32.
-    Returns (y (B, H, Dv) in v's dtype, new_state)."""
+    Returns (y (B, H, Dv) in v's dtype, new_state).  DTensors: each rank
+    its own rows and heads (``_on_shards``)."""
+    return _on_shards(
+        lambda q, k, v, log_w, s, u: _gla_decode(q, k, v, log_w, s,
+                                                 variant, u),
+        q, k, v, log_w, state, bonus, head=1)
+
+
+def _gla_decode(q, k, v, log_w, state, variant, bonus):
     q32, k32, v32 = q.float(), k.float(), v.float()
     w = torch.exp(log_w.float())
     outer = torch.einsum("bhd,bhv->bhdv", k32, v32)

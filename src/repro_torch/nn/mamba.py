@@ -17,15 +17,29 @@ product of activations and weights of two dtypes is taken in the wider
 k = B are views with stride 0 over heads, which the kernel reads through
 its strides; the decay, broadcast over the state dimension, is made
 contiguous (the kernel reads log_w with unit stride in it).
+
+On a mesh (``ctx``; DTensor weights and activations) ``in_proj``'s
+output dim is one "heads" dim of z | x | B | C | dt, so a rank's
+columns straddle the five parts: its bf16 weight is gathered across
+'model' before the product (at (4, 2048) on zamba2-7b under half the
+bytes of gathering the product), z | x | B | C | dt come out whole on
+every rank, and the conv runs on every channel.  The SSD inputs are
+then laid out for the scan's heads split: x (hence v) and the decay
+are constrained to ("batch", None, "heads"), and q = C and k = B are
+each rank's own stride-0 views over its heads (``_over_heads``:
+nothing of (B, S, H/m, N) is materialised), so the ``ssm_scan`` op
+runs on each rank's H/m heads through its sharding rule.  ``_gated_norm``'s mean over d_inner is then a sum across the
+ranks (DTensor's reduction of a split dim).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
-from repro_torch.nn.layers import mm
+from repro_torch.nn.layers import NO_SHARD, ShardCtx, kept, mm, per_rank
 from repro_torch.nn.linear_attn import gla_chunked, gla_decode
 from repro_torch.nn.param import ParamSpec
 
@@ -76,19 +90,43 @@ def _split_proj(cfg, zxbcdt):
     return torch.split(zxbcdt, [d_inner, d_inner, n, n, nheads], dim=-1)
 
 
-def _ssd_inputs(cfg, xin, bmat, cmat, dt, a_log, dt_bias):
+def _over_heads(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, S, N) broadcast to (B, S, H, N) over ``like``'s heads
+    (dim 2), a view with stride 0 over heads.  A DTensor ``like`` (batch
+    and heads split at most) gets each rank's view over its own heads,
+    laid out as ``like``: ``t`` is gathered to ``like``'s rows, and its
+    gradient is a partial sum over the ranks that split the heads."""
+    b, s, h = like.shape[:3]
+    n = t.shape[-1]
+    if not isinstance(like, DTensor):
+        return t[:, :, None, :].expand(b, s, h, n)
+    rows = kept(like, 0)
+    grads = [Partial() if isinstance(p, Shard) and p.dim == 2 else r
+             for p, r in zip(like.placements, rows)]
+    h_local = like.to_local().shape[2]
+    return per_rank(lambda t: t[:, :, None, :].expand(t.shape[0], s,
+                                                      h_local, n),
+                    like.device_mesh, [(t, rows, grads)],
+                    [(like.placements, (b, s, h, n))])
+
+
+def _ssd_inputs(cfg, xin, bmat, cmat, dt, a_log, dt_bias,
+                ctx: ShardCtx = NO_SHARD):
     """Map mamba tensors onto GLA (q,k,v,log_w); q, k and log_w are
-    broadcast views (stride 0 over heads, log_w also over N)."""
+    broadcast views (stride 0 over heads, log_w also over N).  On a mesh
+    x and dt are laid out for the scan's heads split first."""
     b, s, _ = xin.shape
     _, nheads, _ = dims(cfg)
     hd = cfg.ssm.head_dim
     n = cfg.ssm.state_dim
-    dt = F.softplus(dt.float() + dt_bias.float())
+    dt = ctx.constrain(F.softplus(dt.float() + dt_bias.float()),
+                       "batch", None, "heads")
     decay = -dt * torch.exp(a_log.float())                # (B,S,H) log-decay
-    xh = xin.reshape(b, s, nheads, hd)
+    xh = ctx.constrain(xin.reshape(b, s, nheads, hd),
+                       "batch", None, "heads", None)
     v = xh * dt[..., None].to(xh.dtype)                   # dt-scaled input
-    q = cmat[:, :, None, :].expand(b, s, nheads, n)       # C
-    k = bmat[:, :, None, :].expand(b, s, nheads, n)       # B
+    q = _over_heads(cmat, xh)                             # C
+    k = _over_heads(bmat, xh)                             # B
     log_w = decay[..., None].expand(b, s, nheads, n)
     return q, k, v, log_w, xh
 
@@ -99,11 +137,15 @@ def _gated_norm(y, z, scale, eps=1e-5):
     return (f32 * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
 
 
-def _conv_ssd(p, x, cfg, conv_state, dtype):
+def _conv_ssd(p, x, cfg, conv_state, dtype, ctx: ShardCtx = NO_SHARD):
     """in_proj, the causal conv and the SSD inputs shared by the block
     and the decode step: (z, q, k, v, log_w, xh, new conv state)."""
     d_inner = dims(cfg)[0]
-    zxbcdt = mm(x, p["in_proj"], dtype)
+    # on a mesh the projection's output dim is gathered (in ``dtype``)
+    # before the product, so that z | x | B | C | dt come out whole on
+    # every rank and ``_split_proj`` cuts no split dim
+    w = ctx.constrain(p["in_proj"].to(dtype), "embed", None)
+    zxbcdt = mm(x, w, dtype)
     z, xin, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
     conv_out, conv_state = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
@@ -111,7 +153,7 @@ def _conv_ssd(p, x, cfg, conv_state, dtype):
     xin, bmat, cmat = torch.split(
         conv_out, [d_inner, cfg.ssm.state_dim, cfg.ssm.state_dim], dim=-1)
     q, k, v, log_w, xh = _ssd_inputs(cfg, xin, bmat, cmat, dt,
-                                     p["a_log"], p["dt_bias"])
+                                     p["a_log"], p["dt_bias"], ctx)
     return z, q, k, v, log_w, xh, conv_state
 
 
@@ -124,7 +166,8 @@ def _out(p, y, z, xh, dtype):
 
 
 def mamba_block(p, x, cfg: ModelConfig, *, state=None,
-                dtype=torch.bfloat16, impl="kernel"):
+                ctx: ShardCtx = NO_SHARD, dtype=torch.bfloat16,
+                impl="kernel"):
     """Full-sequence SSD.  state: None or (conv_state, ssm_state).
     Returns (out (B,S,D), (conv_state, ssm_state)).  ``impl="kernel"``
     runs the ``ssm_scan`` wrapper (the CUDA kernels, which have no
@@ -134,7 +177,7 @@ def mamba_block(p, x, cfg: ModelConfig, *, state=None,
         raise ValueError(f"mamba_block: impl {impl!r} is not 'kernel' or "
                          f"'plain'")
     z, q, k, v, log_w, xh, conv_state = _conv_ssd(
-        p, x, cfg, None if state is None else state[0], dtype)
+        p, x, cfg, None if state is None else state[0], dtype, ctx)
     scan = ssm_ops.gla_chunked if impl == "kernel" else gla_chunked
     y, s_final = scan(q, k, v, log_w.contiguous(), chunk=cfg.ssm.chunk,
                       variant="mamba",
@@ -142,10 +185,11 @@ def mamba_block(p, x, cfg: ModelConfig, *, state=None,
     return _out(p, y, z, xh, dtype), (conv_state, s_final)
 
 
-def mamba_decode(p, x, cfg: ModelConfig, *, state, dtype=torch.bfloat16):
+def mamba_decode(p, x, cfg: ModelConfig, *, state,
+                 ctx: ShardCtx = NO_SHARD, dtype=torch.bfloat16):
     """x: (B,1,D); state = (conv_state (B,W-1,C), ssm_state (B,H,N,hd))."""
     z, q, k, v, log_w, xh, conv_state = _conv_ssd(p, x, cfg, state[0],
-                                                  dtype)
+                                                  dtype, ctx)
     y, s_new = gla_decode(q[:, 0], k[:, 0], v[:, 0], log_w[:, 0], state[1],
                           variant="mamba")
     return _out(p, y[:, None], z, xh, dtype), (conv_state, s_new)

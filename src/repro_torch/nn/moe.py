@@ -9,6 +9,25 @@ goes to a trash slot and contributes 0.  So prefill at a capacity factor
 under E may drop tokens where decode (S = 1) does not.  The expert
 products stay ``torch.einsum``, as JAX computes them outside any Pallas
 kernel.
+
+On a mesh (``ctx``; DTensor weights and activations) the bookkeeping
+stays shard-local, as JAX's docstring says of its groups: the router's
+probabilities are a DTensor product, then each rank picks the top k,
+computes the slots, the dispatch's ``index_put`` and the combine's
+gather on its own batch rows (``nn.layers.per_rank``; any other split
+of x is gathered).  The dispatched (G, E, C, D) tensor and the
+experts' output are constrained at JAX's two points
+(``src/repro/nn/moe.py:89, 92``), and the expert MLP runs as DTensor
+einsums on the weights the rules lay out: under the default rules the
+experts are replicated (the meshes have no 'expert' axis) and F is
+split on 'model'; under ``EXPERT_PARALLEL_RULES`` the experts are split
+on 'data', which the dispatch's batch claims first.  No expert weight
+moves then: DTensor all-gathers the dispatched activations over
+'data' for each expert product (each rank runs its own experts on
+every group) and sends the outputs back to their groups' ranks (an
+all-to-all), as ``tools/mesh_bf16_gap.py collectives`` lists.  The
+load-balance loss reduces its counts and mean probabilities over the
+whole batch, as one process does.
 """
 from __future__ import annotations
 
@@ -17,8 +36,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.nn.layers import NO_SHARD, ShardCtx, kept, per_rank
 from repro_torch.nn.param import ParamSpec
 
 
@@ -44,16 +65,21 @@ def _gelu(t: torch.Tensor) -> torch.Tensor:
 
 
 def _expert_mlp(params, h, activation: str, dtype):
-    """h: (G, E, C, D) -> (G, E, C, D); weights cast to ``dtype`` at use."""
+    """h: (G, E, C, D) -> (G, E, C, D); weights cast to ``dtype`` at use.
+    The products run expert-major on a contiguous (E, G, C, ·) copy:
+    ``einsum`` flattens (G, C) into the rows of a batched product over
+    E, which a DTensor split on G can take only from contiguous rows."""
+    h = h.transpose(0, 1).contiguous()
     if "wi_gate" in params:
-        g = torch.einsum("gecd,edf->gecf", h, params["wi_gate"].to(dtype))
-        u = torch.einsum("gecd,edf->gecf", h, params["wi_up"].to(dtype))
+        g = torch.einsum("egcd,edf->egcf", h, params["wi_gate"].to(dtype))
+        u = torch.einsum("egcd,edf->egcf", h, params["wi_up"].to(dtype))
         act = F.silu if activation == "swiglu" else _gelu
         z = act(g) * u
     else:
-        z = _gelu(torch.einsum("gecd,edf->gecf", h,
+        z = _gelu(torch.einsum("egcd,edf->egcf", h,
                                params["wi"].to(dtype)))
-    return torch.einsum("gecf,efd->gecd", z, params["wo"].to(dtype))
+    return torch.einsum("egcf,efd->egcd", z,
+                        params["wo"].to(dtype)).transpose(0, 1)
 
 
 def capacity(seq: int, moe: MoEConfig) -> int:
@@ -62,12 +88,17 @@ def capacity(seq: int, moe: MoEConfig) -> int:
                                 * moe.capacity_factor)))
 
 
+def _router_probs(params, x):
+    """The fp32 router's probabilities (B, S, E) on x (B, S, D)."""
+    logits = torch.einsum("bsd,de->bse", x.float(),
+                          params["router"].float())
+    return torch.softmax(logits, dim=-1)
+
+
 def route(params, x, moe: MoEConfig):
     """The fp32 router on x (B, S, D): (probs (B, S, E), the top-k expert
     ids (B, S, k), largest first)."""
-    logits = torch.einsum("bsd,de->bse", x.float(),
-                          params["router"].float())
-    probs = torch.softmax(logits, dim=-1)
+    probs = _router_probs(params, x)
     return probs, torch.topk(probs, moe.top_k, dim=-1).indices
 
 
@@ -88,7 +119,8 @@ def dispatch_slots(expert_ids, cap: int, num_experts: int):
 
 def moe_mlp(params, x: torch.Tensor, moe: MoEConfig, activation: str,
             dtype: torch.dtype = torch.bfloat16,
-            expert_ids: Optional[torch.Tensor] = None
+            expert_ids: Optional[torch.Tensor] = None,
+            ctx: ShardCtx = NO_SHARD
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D).  Returns (y (B, S, D) in ``dtype``, the fp32
     Switch/GShard load-balance loss).
@@ -98,41 +130,74 @@ def moe_mlp(params, x: torch.Tensor, moe: MoEConfig, activation: str,
     as usual.  A near-tie between the k-th and (k+1)-th choice flips with
     the rounding of the input, and a flipped token's output differs by
     O(1); pinning holds two routes of the same model to rounding."""
-    return moe_mlp_routed(params, x, moe, activation, dtype, expert_ids)[:2]
+    return moe_mlp_routed(params, x, moe, activation, dtype, expert_ids,
+                          ctx)[:2]
 
 
 def moe_mlp_routed(params, x, moe: MoEConfig, activation: str,
                    dtype: torch.dtype = torch.bfloat16,
-                   expert_ids: Optional[torch.Tensor] = None):
+                   expert_ids: Optional[torch.Tensor] = None,
+                   ctx: ShardCtx = NO_SHARD):
     """``moe_mlp``'s (y, aux) and the expert ids it routed to."""
     b, s, d = x.shape
     e, k = moe.num_experts, moe.top_k
     cap = capacity(s, moe)
 
-    probs, picked = route(params, x, moe)
-    ids = picked if expert_ids is None else expert_ids.to(picked)
-    gate_vals = torch.gather(probs, -1, ids)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    probs = _router_probs(params, x)
+    mean_probs = probs.mean(dim=(0, 1))
+    # the bookkeeping runs on each rank's own rows (``per_rank``; every
+    # row with no mesh)
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
+    rows = None if mesh is None else kept(x, 0)
+    summed = None if mesh is None else [
+        Partial() if isinstance(p, Shard) else p for p in rows]
+
+    def dispatch(x, probs, pinned):
+        picked = torch.topk(probs, k, dim=-1).indices
+        ids = picked if pinned is None else pinned.to(picked)
+        gate_vals = torch.gather(probs, -1, ids)
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(-1, keepdim=True), min=1e-9)
+        # the first choices counted, for the load-balance loss
+        first = F.one_hot(ids[..., 0], e).float().sum(dim=(0, 1))
+        # grouped dispatch (group = batch row)
+        bl = x.shape[0]
+        slot, _ = dispatch_slots(ids, cap, e)
+        x_rep = torch.repeat_interleave(x, k, dim=1).to(dtype)  # (B, N, D)
+        disp = torch.zeros((bl, e * cap + 1, d), dtype=dtype,
+                           device=x.device)
+        disp = disp.index_put((_groups(bl, x.device), slot), x_rep,
+                              accumulate=True)
+        return (disp[:, :e * cap].reshape(bl, e, cap, d), gate_vals, slot,
+                ids.contiguous(), first)
+
+    h, gate_vals, slot, ids, first = per_rank(
+        dispatch, mesh, [(x, rows), (probs, rows), (expert_ids, rows)],
+        [(rows, (b, e, cap, d)), (rows, (b, s, k)), (rows, (b, s * k)),
+         (rows, (b, s, k)), (summed, (e,))])
 
     # Switch/GShard load-balance auxiliary loss (first choice only)
-    density = F.one_hot(ids[..., 0], e).float().mean(dim=(0, 1))
-    mean_probs = probs.mean(dim=(0, 1))
+    density = first / (b * s)
     aux = e * torch.sum(density * mean_probs) * moe.router_aux_weight
 
-    # grouped dispatch (group = batch row)
-    slot, _ = dispatch_slots(ids, cap, e)
-    gidx = torch.arange(b, device=x.device)[:, None]
-    x_rep = torch.repeat_interleave(x, k, dim=1).to(dtype)     # (B, N, D)
-    disp = torch.zeros((b, e * cap + 1, d), dtype=dtype, device=x.device)
-    disp = disp.index_put((gidx, slot), x_rep, accumulate=True)
-    h = disp[:, :e * cap].reshape(b, e, cap, d)
-
+    h = ctx.constrain(h, "batch", "experts", None, None)
     y_exp = _expert_mlp(params, h, activation, dtype)          # (B,E,C,D)
-    y_flat = torch.cat([y_exp.reshape(b, e * cap, d),
-                        torch.zeros((b, 1, d), dtype=dtype,
-                                    device=x.device)], dim=1)
-    y_rep = y_flat[gidx, slot].reshape(b, s, k, d)
-    gates = gate_vals.reshape(b, s, k, 1).to(dtype)
-    y = torch.sum(y_rep * gates, dim=2)
+    y_exp = ctx.constrain(y_exp, "batch", "experts", None, None)
+
+    def combine(y_exp, slot, gate_vals):
+        bl = y_exp.shape[0]
+        y_flat = torch.cat([y_exp.reshape(bl, e * cap, d),
+                            torch.zeros((bl, 1, d), dtype=dtype,
+                                        device=y_exp.device)], dim=1)
+        y_rep = y_flat[_groups(bl, y_exp.device), slot].reshape(bl, s, k, d)
+        gates = gate_vals.reshape(bl, s, k, 1).to(dtype)
+        return torch.sum(y_rep * gates, dim=2)
+
+    y = per_rank(combine, mesh, [(y_exp, rows), (slot, rows),
+                                 (gate_vals, rows)], [(rows, (b, s, d))])
     return y, aux.float(), ids
+
+
+def _groups(b: int, device) -> torch.Tensor:
+    """(B, 1) row indices of the dispatch's groups."""
+    return torch.arange(b, device=device)[:, None]

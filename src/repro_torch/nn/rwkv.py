@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
-from repro_torch.nn.layers import mm
+from repro_torch.nn.layers import NO_SHARD, ShardCtx, mm
 from repro_torch.nn.linear_attn import gla_chunked, gla_decode
 from repro_torch.nn.param import ParamSpec
 
@@ -105,18 +105,24 @@ def _out(p, y, g, dtype):
 
 
 def time_mix(p, x, cfg: ModelConfig, *, prev_x, state,
-             dtype=torch.bfloat16, impl="kernel"):
+             ctx: ShardCtx = NO_SHARD, dtype=torch.bfloat16, impl="kernel"):
     """Full-sequence WKV.  prev_x: (B,D); state: (B,H,hd,hd) fp32 or
     None.  Returns (out, (last x, state)).  ``impl="kernel"`` runs the
     ``ssm_scan`` wrapper (the CUDA kernels, which have no backward pass,
     or the plain version on the CPU); ``"plain"`` runs
     ``nn.linear_attn.gla_chunked`` on any device, differentiable, as JAX
-    differentiates its jnp ``gla_chunked``."""
+    differentiates its jnp ``gla_chunked``.  On a mesh the scan's inputs
+    are laid out ("batch", None, "heads", None) first, the layout the
+    ("embed", "heads") projections give them on 'model', so the scan
+    runs on each rank's rows and heads whatever split DTensor chose for
+    the products."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"time_mix: impl {impl!r} is not 'kernel' or "
                          f"'plain'")
     h, hd = cfg.num_heads, cfg.resolved_head_dim()
-    r, k, v, g, log_w = _rkvgw(p, x, _shift(x, prev_x), h, hd, dtype)
+    r, k, v, g, log_w = (
+        ctx.constrain(t, "batch", None, "heads", None) if t.dim() == 4
+        else t for t in _rkvgw(p, x, _shift(x, prev_x), h, hd, dtype))
     scan = ssm_ops.gla_chunked if impl == "kernel" else gla_chunked
     y, s_final = scan(r, k, v, log_w, chunk=cfg.ssm.chunk, variant="rwkv",
                       bonus=p["bonus"], initial_state=state)

@@ -18,7 +18,6 @@ from repro_torch.launch.serve import generate
 from repro_torch.models.api import build_model
 from repro_torch.nn import sharding as shd
 from repro_torch.nn.layers import ShardCtx
-from repro_torch.nn.param import tree_leaves
 from repro_torch.optim import adamw
 
 RULES = shd.DEFAULT_RULES
@@ -32,7 +31,7 @@ def f32_config(name, **over):
 
 def _shard_shapes_agree(params, shardings) -> bool:
     return all(tuple(p.to_local().shape) == s.shard_shape(p.shape)
-               for p, s in zip(tree_leaves(params), tree_leaves(shardings)))
+               for p, s in zip(_leaves(params), _leaves(shardings)))
 
 
 def _flash_layouts(dm, seed=0):
@@ -158,3 +157,163 @@ def hang():
     import time
     while True:
         time.sleep(1)
+
+
+# ------------------------------------------------ rwkv6, zamba2, MoE, encdec
+def _leaves(tree):
+    """The tensors of nested dicts and tuples, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _recording(store, fn):
+    """``fn`` that first notes its tensor arguments' shapes and strides."""
+    def rec(*args, **kw):
+        store.append([(tuple(a.shape), tuple(a.stride()))
+                      if isinstance(a, torch.Tensor) else a
+                      for a in list(args) + list(kw.values())])
+        return fn(*args, **kw)
+    return rec
+
+
+def _gla_layouts(dm, seed=0):
+    """The ``gla_chunked`` op on DTensor inputs laid out as the models lay
+    them out (batch on 'data', heads on 'model'), both variants, with a
+    bonus and an initial state: (y, state) gathered against the
+    unsharded op, and the output placements DTensor picked."""
+    from repro_torch.kernels.ssm_scan import ops as ss
+    rng = np.random.default_rng(seed)
+    names = dm.mesh_dim_names
+    b, l, h, dk, dv = 4, 40, 8, 16, 16
+    out = {}
+    for variant in ("rwkv", "mamba"):
+        def t(*shape, neg=False):
+            a = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+            return -a.abs() * 0.1 if neg else a
+
+        q, k, lw = t(b, l, h, dk), t(b, l, h, dk), t(b, l, h, dk, neg=True)
+        v, bonus, s0 = t(b, l, h, dv), t(h, dk), t(b, h, dk, dv)
+        ref = ss.gla_chunked(q, k, v, lw, chunk=16, variant=variant,
+                             bonus=bonus, initial_state=s0)
+
+        def place(x, batch, heads):
+            pl = [Shard(batch) if name == "data" and batch is not None
+                  else Shard(heads) if name == "model" else Replicate()
+                  for name in names]
+            return distribute_tensor(x, dm, pl, src_data_rank=None)
+
+        got = ss.gla_chunked(*(place(x, 0, 2) for x in (q, k, v, lw)),
+                             chunk=16, variant=variant,
+                             bonus=place(bonus, None, 0),
+                             initial_state=place(s0, 0, 1))
+        out[variant] = dict(
+            y_err=float((got[0].full_tensor() - ref[0]).abs().max()),
+            state_err=float((got[1].full_tensor() - ref[1]).abs().max()),
+            placements=[[repr(p) for p in g.placements] for g in got])
+    return out
+
+
+def family_steps(dm, rules_name, name, jax_np, inp):
+    """``name``'s reduced() fp32 config on the mesh ``dm`` under the rule
+    set ``rules_name``, weights JAX's tree ``jax_np``: a prefill through
+    the prefill bundle (the scans and flash on their kernel routes, the
+    calls at the ``ssm_scan`` op recorded with their local shapes), the
+    MoE routing on the mesh and a prefill with ``inp["pins"]`` pinning
+    it, ``inp["decode"]`` decode steps through the decode bundle (the
+    encoder-decoder's cross cache built on the mesh), the loss's
+    gradients, and two train steps through the train bundle; for an
+    attention-free family, ``_gla_layouts``.  Results gathered to full
+    CPU tensors."""
+    from repro_torch.kernels.ssm_scan import ops as ss
+    rules = shd.RULE_SETS[rules_name]
+    cfg = f32_config(name, attention_impl="kernel")
+    model = build_model(cfg)
+    ctx = ShardCtx(dm, rules)
+    params = convert.lm_params_from_jax(jax_np, "cpu")
+    prompt = torch.as_tensor(inp["prompt"])
+    b, s = prompt.shape
+    batch = {"tokens": prompt}
+    if cfg.encdec is not None:
+        batch["src_embeds"] = torch.as_tensor(inp["src"])
+    out = {"mesh": dict(zip(dm.mesh_dim_names, dm.shape)), "gla_calls": []}
+
+    bundle = steps.make_prefill_bundle(cfg, InputShape("t", s, b,
+                                                       "prefill"), dm, rules)
+    dp = shd.distribute(params, bundle.in_shardings[0], dm)
+    out["shard_shapes_ok"] = _shard_shapes_agree(dp, bundle.in_shardings[0])
+    plain = ss.gla_chunked_plain
+    ss.gla_chunked_plain = _recording(out["gla_calls"], plain)
+    try:
+        logits = steps.on_mesh(bundle, dm)(dp, batch)
+    finally:
+        ss.gla_chunked_plain = plain
+    out["prefill"] = shd.full(logits)
+    out["prefill_placements"] = [repr(p) for p in logits.placements]
+    db = shd.distribute(batch, bundle.in_shardings[1], dm)
+    if cfg.moe is not None:
+        out["routing"] = shd.full(model.routing(dp, db, ctx))
+        out["prefill_pinned"] = shd.full(model.prefill(
+            dp, dict(db, expert_ids=torch.as_tensor(inp["pins"])), ctx))
+
+    bundle = steps.make_decode_bundle(
+        cfg, InputShape("t", s, b, "decode"), dm, rules)
+    run = steps.on_mesh(bundle, dm)
+    cache = model.init_cache(b, s, device="cpu")
+    if cfg.encdec is not None:
+        cache["cross"] = model.build_cross_cache(
+            dp, model._encode(dp, db["src_embeds"], ctx), ctx)
+        out["cross_placements"] = [repr(p)
+                                   for p in cache["cross"]["k"].placements]
+    cache = shd.distribute(cache, bundle.in_shardings[1], dm)
+    out["cache_shapes_ok"] = _shard_shapes_agree(cache,
+                                                 bundle.in_shardings[1])
+    logits = []
+    for i in range(inp["decode"]):
+        lg, after = run(dp, cache, {"token": prompt[:, i:i + 1],
+                                    "pos": torch.full((b,), i)})
+        logits.append(shd.full(lg))
+    out["decode"] = torch.stack(logits)
+    out["cache_in_place"] = all(x is y for x, y in zip(_leaves(after),
+                                                       _leaves(cache)))
+    out["cache"] = shd.full(cache)
+
+    bundle = steps.make_train_bundle(cfg, InputShape("t", s, b, "train"), dm,
+                                     rules, opt_state_dtype=torch.float32)
+    tbatch = dict(batch, labels=torch.as_tensor(inp["labels"][0]))
+    dtb = shd.distribute(tbatch, bundle.in_shardings[2], dm)
+    (loss, _), grads = steps.value_and_grad(
+        lambda p: model.loss(p, dtb, ctx), dp)
+    out["loss"], out["grads"] = float(shd.full(loss)), shd.full(grads)
+    run = steps.on_mesh(bundle, dm)
+    st = adamw(3e-4, weight_decay=0.1, state_dtype=torch.float32).init(dp)
+    p, losses = dp, []
+    for labels in inp["labels"]:
+        p, st, loss, metrics = run(p, st, dict(batch,
+                                               labels=torch.as_tensor(labels)))
+        losses.append((float(shd.full(loss)),
+                       float(shd.full(metrics["aux"]))))
+    out["train_losses"] = losses
+    if cfg.arch_type == "ssm":
+        out["gla"] = _gla_layouts(dm)
+    return out
+
+
+def families_on_meshes(runs, names, jax_trees, inp):
+    """``family_steps`` of each of ``names`` on each (mesh shape, rule
+    set) of ``runs``, every mesh over the same ranks: {(name, shape,
+    rules): results} on rank 0."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    out = {}
+    for shape, rules in runs:
+        dm = init_device_mesh("cpu", shape,
+                              mesh_dim_names=mesh_lib.MESH_AXES)
+        for name in names:
+            if (name, shape, rules) in inp["skip"]:
+                continue
+            out[(name, shape, rules)] = family_steps(
+                dm, rules, name, jax_trees[name], inp[name])
+    return out if dist.get_rank() == 0 else None

@@ -934,3 +934,96 @@ def test_flash_sharding_rule_on_two_cards(cards, model_axis):
             assert r["placements"][1] != "Shard(dim=2)", (h, kv, r)
         else:
             assert r["placements"][0] == "Shard(dim=0)", (h, kv, r)
+
+
+def _gla_on_mesh(model_axis):
+    """A rank of a world of ``nccl`` ranks: ``gla_chunked`` on DTensor
+    q, k, v, log_w laid out as the models lay them out (batch on 'data',
+    heads on 'model'), bonus on heads and the initial state on both, in
+    bf16 and fp32, both variants, at rwkv6-1.6b's head and chunk.  Rank
+    0 returns, for each case, its launches, its local heads, the
+    output's placements and the elements of y and of the final state
+    beyond the serve bars against the plain version on the full
+    tensors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels.ssm_scan import ops as ss
+    from repro_torch.launch import mesh as mesh_lib
+    dm = mesh_lib.make_device_mesh(model_axis, device_type="cuda")
+    rng = np.random.default_rng(0)
+
+    def place(t, batch, heads):
+        return distribute_tensor(t, dm, [
+            Shard(batch) if name == "data" and batch is not None
+            else Shard(heads) if name == "model" else Replicate()
+            for name in dm.mesh_dim_names], src_data_rank=None)
+
+    out = {}
+    for variant in ("rwkv", "mamba"):
+        for dtype, tol in ((torch.bfloat16, 2.0 ** -7), (torch.float32,
+                                                         1e-4)):
+            b, l, h, d = 4, 300, 8, 64
+            q, k, v = (torch.as_tensor(rng.normal(size=(b, l, h, d)),
+                                       dtype=dtype, device="cuda")
+                       for _ in range(3))
+            lw = torch.as_tensor(-np.abs(rng.normal(size=(b, l, h, d))),
+                                 dtype=torch.float32, device="cuda")
+            bonus = torch.as_tensor(rng.normal(size=(h, d)),
+                                    dtype=torch.float32, device="cuda")
+            s0 = torch.as_tensor(rng.normal(size=(b, h, d, d)),
+                                 dtype=torch.float32, device="cuda")
+            local = []
+            launch = ss._gla_launch
+            ss._gla_launch = lambda q_, *a: (local.append(q_.shape[2]),
+                                             launch(q_, *a))[1]
+            ss.gla_chunked.launches = 0
+            try:
+                y, s = ss.gla_chunked(
+                    *(place(t, 0, 2) for t in (q, k, v, lw)), chunk=128,
+                    variant=variant, bonus=place(bonus, None, 0),
+                    initial_state=place(s0, 0, 1))
+            finally:
+                ss._gla_launch = launch
+            py, ps = ss.gla_chunked_plain(q, k, v, lw, chunk=128,
+                                          variant=variant, bonus=bonus,
+                                          initial_state=s0)
+            out[(variant, str(dtype))] = dict(
+                launches=ss.gla_chunked.launches, local_heads=local,
+                placements=[[repr(p) for p in t.placements] for t in (y, s)],
+                y_beyond=int((~torch.isclose(y.full_tensor().float(),
+                                             py.float(), atol=1e-5,
+                                             rtol=tol)).sum()),
+                s_beyond=int((~torch.isclose(s.full_tensor(), ps,
+                                             atol=1e-5, rtol=1e-4)).sum()))
+    return out if dist.get_rank() == 0 else None
+
+
+def _check_gla_on_mesh(got, model_axis):
+    for case, r in got.items():
+        assert r["launches"] == SSM_KERNELS, (case, r)
+        assert r["local_heads"] == [8 // model_axis], (case, r)
+        assert r["placements"] == [["Shard(dim=0)", "Shard(dim=2)"],
+                                   ["Shard(dim=0)", "Shard(dim=1)"]], r
+        assert r["y_beyond"] == 0 and r["s_beyond"] == 0, (case, r)
+
+
+@pytest.mark.cuda
+def test_gla_sharding_rule_on_a_one_rank_world(cuda):
+    """The ``ssm_scan`` op's DTensor sharding rule in a world of one
+    ``nccl`` rank: the kernels launch (three a call, never the plain
+    version) on the rank's shard and agree with the plain version within
+    the serve bars (bf16 y one ulp; fp32 within summation order)."""
+    from repro_torch.launch import mesh as mesh_lib
+    _check_gla_on_mesh(mesh_lib.launch(_gla_on_mesh, 1, device_type="cuda",
+                                       args=(1,), timeout=300)[0], 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_axis", [2, 1], ids=["1x2", "2x1"])
+def test_gla_sharding_rule_on_two_cards(cards, model_axis):
+    """The same on two cards: rank 0's kernels run on its rows (2, 1) or
+    on 4 of the 8 heads (1, 2)."""
+    from repro_torch.launch import mesh as mesh_lib
+    _check_gla_on_mesh(mesh_lib.launch(_gla_on_mesh, 2, device_type="cuda",
+                                       args=(model_axis,), timeout=300)[0],
+                       model_axis)

@@ -4,9 +4,10 @@ DTensor parameters laid out by the default rules, ``launch.steps.on_mesh``)
 held against one process and against JAX's jitted bundles on a (2, 2)
 mesh of forced host devices; the flash op's sharding rule; the mesh
 entry points (``launch.train --devices/--model-axis``, ``launch.serve``'s
-data mesh); the families that refuse a mesh; the launcher's failure and
-timeout; the shard-local parameter draws.  Weights are JAX's, carried
-across by ``convert.lm_params_from_jax``."""
+data mesh); the launcher's failure and timeout; the shard-local
+parameter draws.  Weights are JAX's, carried across by
+``convert.lm_params_from_jax``.  The other families on a mesh:
+``tests/test_torch_mesh_ssm.py`` and ``tests/test_torch_mesh_moe.py``."""
 import dataclasses
 import os
 import pickle
@@ -29,7 +30,6 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models.api import build_model
 from repro_torch.nn import param as P
 from repro_torch.nn import sharding as shd
-from repro_torch.nn.layers import ShardCtx
 from repro_torch.nn.param import tree_leaves
 from repro_torch.optim import adamw
 
@@ -349,36 +349,6 @@ def test_serve_cli_on_a_data_mesh(capfd):
                         "--device", "cpu"])
     assert toks.shape == (4, 4) and ((toks >= 0) & (toks < 1024)).all()
     assert "mesh {'data': 2, 'model': 1}" in capfd.readouterr().out
-
-
-class _Mesh:
-    """Stands in for a DeviceMesh of ``n`` devices (only its size is
-    read before the refusal)."""
-
-    def __init__(self, n):
-        self.n = n
-
-    def size(self):
-        return self.n
-
-
-@pytest.mark.parametrize("name,item", [
-    ("rwkv6-1.6b", "6.8c"), ("zamba2-7b", "6.8c"),
-    ("grok-1-314b", "6.8d"), ("seamless-m4t-large-v2", "6.8d")])
-def test_families_without_mesh_execution_refuse_a_mesh(name, item):
-    from repro_torch.configs import get_config
-    model = build_model(get_config(name).reduced())
-    ctx = ShardCtx(_Mesh(4), shd.DEFAULT_RULES)
-    batch = {"tokens": torch.zeros((2, 8), dtype=torch.long),
-             "labels": torch.zeros((2, 8), dtype=torch.long),
-             "src_embeds": torch.zeros((2, 8, 8))}
-    for call in (lambda: model.loss(None, batch, ctx),
-                 lambda: model.prefill(None, batch, ctx),
-                 lambda: model.decode_step(None, None, batch, ctx=ctx)):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
-    # a mesh of one device is no mesh to refuse
-    assert ShardCtx(_Mesh(1), shd.DEFAULT_RULES).size == 1
 
 
 # ------------------------------------------------- the launcher
