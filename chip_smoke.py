@@ -212,9 +212,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
              within ACCT_BYTES_TOL), timed without the counter: TFLOP/s,
              the roofline's compute and memory terms and their shares,
              ``roofline.mfu``, peak memory beside the dry run's 1x1
-             argument bytes.  (c) ``python -m repro_torch.launch.dryrun``
-             for llama3.2-1b x the four input shapes at 16x16 on ``meta``,
-             in a child process started after the build: every record ok.
+             argument bytes.  (c) the partitioned dry run
+             (``repro_torch.launch.dryrun``) for llama3.2-1b x the four
+             input shapes at 16x16 on ``meta``, rank 0 of each step on a
+             fake process group of 256 ranks, and the same on one card,
+             in a child process started after the build: every record
+             ok, each 16x16 record rank 0's (``per_device`` "rank0") with
+             its collectives counted (bytes above 0), and rank 0's FLOPs
+             x 256 at least the one-card record's.
 6. checks  — the disagreement kernel on the trained models' predictions
              and the transfer against their plain versions, and the GPU
              against the port on the CPU at a small size (the ST-LF
@@ -255,7 +260,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
              argmax equal, zamba2-7b at MESH_BF16_TOL_DEEP; fp32 at
              MESH_F32_TOL_FAMILIES), rank 0's scans on H/k heads on
              (1, k), the bytes of the collectives on rank 0 and their
-             largest buffers (a prefill; zamba2-7b's first mamba layer);
+             largest buffers (a prefill; zamba2-7b's first mamba layer;
+             read by ``launch.hlo.StepCounter``: a collective's result
+             bytes, twice that for an all-reduce);
              tokens/s, ms a step, each card's peak memory.  9c, on four or more cards:
              granite-34b at full width and depth on (1, 4), the kernel
              route against dot (LM_TOL), decode steps; grok-1 at full
@@ -2597,24 +2604,31 @@ ACCT_BYTES_TOL = 1e-2
 ACCT_PREFILL = (4, 2048)
 ACCT_DECODE = (4, 2048, 64)
 ACCT_TRAIN = (8, 512)
-# the dry run's architecture, at the 16x16 mesh, the four input shapes
+# the dry run's architecture, at the 16x16 mesh and on one card, the
+# four input shapes
 ACCT_DRYRUN_ARCH = LM_ARCH
+DRYRUN_SCRIPT = """
+import sys
+from repro_torch.launch import dryrun
+for meshes in ([], ["--one-card"]):
+    dryrun.main(["--arch", sys.argv[1], "--out", sys.argv[2]] + meshes)
+"""
 
 
 def start_dryrun():
     """The short dry run (phase 8c) in a child process on meta tensors,
-    started at the beginning of the run so that its ~40 s of host work
-    overlaps the card's phases: ``python -m repro_torch.launch.dryrun``
-    for ACCT_DRYRUN_ARCH x every input shape at 16x16."""
+    started at the beginning of the run so that its host work overlaps
+    the card's phases: the partitioned count of ACCT_DRYRUN_ARCH x every
+    input shape at 16x16 (rank 0 on a fake process group), then on one
+    card."""
     out = ROOT / "build" / "dryrun_smoke"
     shutil.rmtree(out, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
     log_file = open(ROOT / "build" / "dryrun_smoke.log", "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         ACCT_DRYRUN_ARCH, "--out", str(out)], cwd=ROOT, env=env,
-        stdout=log_file, stderr=subprocess.STDOUT)
+        [sys.executable, "-c", DRYRUN_SCRIPT, ACCT_DRYRUN_ARCH, str(out)],
+        cwd=ROOT, env=env, stdout=log_file, stderr=subprocess.STDOUT)
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return proc, out, log_file
 
@@ -2915,31 +2929,57 @@ def phase_accounting(counted, report, smi, dryrun):
         lambda: bundle.fn(params, opt_state, tbatch), 10, smi, counted)
     del params, opt_state
     torch.cuda.empty_cache()
-    # 8c. the dry run on meta, every shape ok (long_500k by the ring cache)
+    # 8c. the partitioned dry run on meta, every shape ok (long_500k by
+    # the ring cache): rank 0 of 256 with its collectives, and one card
     proc, path, log_file = dryrun
+    t_wait = time.perf_counter()
     rc = proc.wait(timeout=600)
+    waited = time.perf_counter() - t_wait
     log_file.close()
-    recs = {p.stem: json.loads(p.read_text())
-            for p in sorted(path.glob("*.json"))}
-    if rc != 0 or len(recs) != 4 \
+    recs = {(r["shape"], r["mesh"]): r for r in (
+        json.loads(p.read_text()) for p in sorted(path.glob("*.json")))}
+    if rc != 0 or len(recs) != 8 \
             or any(r["status"] != "ok" for r in recs.values()):
         raise AssertionError(
             f"[accounting] dry run exit {rc}, records "
             f"{ {k: r['status'] for k, r in recs.items()} }: "
             + (ROOT / "build" / "dryrun_smoke.log").read_text()[-2000:])
-    out["dryrun"] = {}
-    for tag, r in recs.items():
-        out["dryrun"][r["shape"]] = dict(
+    out["dryrun"] = {"waited_s": waited}
+    for (shape, mesh), r in sorted(recs.items()):
+        if mesh != "16x16":
+            continue
+        whole = recs[(shape, "1x1")]["hlo_flops_per_device"]
+        bad = [what for what, ok in (
+            ("per_device is not rank0", r["per_device"] == "rank0"),
+            ("no collective bytes", r["collective_bytes_per_device"] > 0),
+            ("no collectives", bool(r["collectives"])),
+            ("rank 0's FLOPs x 256 under one card's",
+             r["hlo_flops_per_device"] * r["chips"] >= whole)) if not ok]
+        if bad:
+            raise AssertionError(f"[accounting] dry run {shape} on {mesh}: "
+                                 f"{bad}: {r}")
+        out["dryrun"][shape] = dict(
             flops_per_device=r["hlo_flops_per_device"],
             bytes_per_device=r["hlo_bytes_per_device"],
-            resident_bytes=r["hbm_resident_bytes"], fits=r["fits_hbm"],
-            dominant=r["roofline"]["dominant"], count_s=r["count_s"])
-        log(f"[accounting] dry run {tag}, reckoned on meta (not measured): "
-            f"{r['hlo_flops_per_device']:.4g} FLOPs and "
-            f"{r['hlo_bytes_per_device']:.4g} bytes a device (even split "
-            f"of {r['chips']}), resident {r['hbm_resident_bytes'] / 1e9:.3f}"
-            f" GB, dominant {r['roofline']['dominant']}; counted in "
-            f"{r['count_s']} s")
+            collective_bytes_per_device=r["collective_bytes_per_device"],
+            collectives=r["collectives"], flops_one_card=whole,
+            rank0_over_even_share=r["hlo_flops_per_device"] * r["chips"]
+            / whole, resident_bytes=r["hbm_resident_bytes"],
+            fits=r["fits_hbm"], dominant=r["roofline"]["dominant"],
+            count_s=r["count_s"],
+            count_s_one_card=recs[(shape, "1x1")]["count_s"])
+        log(f"[accounting] dry run {ACCT_DRYRUN_ARCH} {shape} on {mesh}, "
+            f"reckoned on meta (not measured): rank 0 of {r['chips']} "
+            f"{r['hlo_flops_per_device']:.4g} FLOPs "
+            f"({out['dryrun'][shape]['rank0_over_even_share']:.4f} times "
+            f"an even share of one card's {whole:.4g}), "
+            f"{r['hlo_bytes_per_device']:.4g} bytes, collectives "
+            f"{r['collective_bytes_per_device']:.4g} bytes "
+            f"{ {k: (c['count'], c['bytes']) for k, c in r['collectives'].items()} }"
+            f", resident {r['hbm_resident_bytes'] / 1e9:.3f} GB, dominant "
+            f"{r['roofline']['dominant']}; counted in {r['count_s']} s "
+            f"(one card {recs[(shape, '1x1')]['count_s']} s)")
+    log(f"[accounting] dry run child: waited {waited:.1f} s for it here")
     report["accounting"] = out
     return out
 
@@ -4385,53 +4425,11 @@ def _whole(tree):
                     tree)
 
 
-def _comm_bytes():
-    """A dispatch mode that sums, by collective, the bytes of each
-    collective's full buffer on this rank (an all-gather's output, a
-    reduce-scatter's, all-reduce's or all-to-all's input) as DTensor
-    lowers its redistributions to them: ``with _comm_bytes() as m: ...``,
-    then ``m.bytes``, and ``m.largest()`` the buffers that moved most
-    (collective, shape, dtype, count, bytes).  DTensor ops are let
-    through (``NotImplemented``) so that the collectives they run are
-    seen."""
-    from torch.distributed.tensor import DTensor
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class CommBytes(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.bytes = {}
-            self.buffers = {}
-
-        def largest(self, n=5):
-            return [(*k, *v) for k, v in sorted(
-                self.buffers.items(), key=lambda kv: -kv[1][1])[:n]]
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if any(t is DTensor for t in types):
-                return NotImplemented
-            out = func(*args, **(kwargs or {}))
-            name = getattr(func, "__name__", str(func))
-            if getattr(func, "namespace", "") in ("_c10d_functional",
-                                                  "c10d") \
-                    and any(c in name.replace("_", "") for c in (
-                        "allgather", "reducescatter", "allreduce",
-                        "alltoall", "broadcast")):
-                buf = out if "all_gather" in name or "allgather" in name \
-                    else args[0]
-                bufs = buf if isinstance(buf, (list, tuple)) else [buf]
-                key = name.split(".")[0]
-                for t in bufs:
-                    if isinstance(t, torch.Tensor):
-                        n = t.numel() * t.element_size()
-                        self.bytes[key] = self.bytes.get(key, 0) + n
-                        c = self.buffers.setdefault(
-                            (key, tuple(t.shape), str(t.dtype)), [0, 0])
-                        c[0] += 1
-                        c[1] += n
-            return out
-
-    return CommBytes()
+def _comm_bytes(counter):
+    """The bytes each collective moved on this rank while ``counter`` (a
+    ``launch.hlo.StepCounter``) was active, by its rule: a collective's
+    result bytes, twice that for an all-reduce."""
+    return {k: b for k, (_, b) in counter.analysis().per_collective.items()}
 
 
 def _gla_calls(ss, calls):
@@ -4464,6 +4462,7 @@ def _family_calls(cfg, model, params, ctx, prefill, decode_steps, plain,
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssm_scan import ops as ss
     from repro_torch.launch import steps
+    from repro_torch.launch.hlo import StepCounter
     from repro_torch.models.common import take_layer
     from repro_torch.nn import sharding as shd
     from repro_torch.nn.layers import NO_SHARD, embed
@@ -4498,18 +4497,18 @@ def _family_calls(cfg, model, params, ctx, prefill, decode_steps, plain,
     if dm.size() > 1:
         # what the prefill's redistributions move on this rank (an extra
         # call, untimed); zamba2's first mamba layer alone
-        with _comm_bytes() as comm:
+        with StepCounter() as comm:
             run(params, batch)
-        out["prefill"]["comm_bytes"] = comm.bytes
+        out["prefill"]["comm_bytes"] = _comm_bytes(comm)
         out["prefill"]["comm_largest"] = comm.largest()
         if cfg.hybrid is not None:
             x = ctx.constrain(embed(db["tokens"], params["embedding"],
                                     getattr(torch, cfg.dtype)),
                               "batch", None, "embed_act")
             lp = take_layer(params["layers"], 0)
-            with _comm_bytes() as comm:
+            with StepCounter() as comm:
                 model._mamba_layer(lp, x, "kernel", ctx)
-            out["mamba_layer_comm_bytes"] = comm.bytes
+            out["mamba_layer_comm_bytes"] = _comm_bytes(comm)
             del x
     if plain is not None:
         model.prefill(plain, batch)

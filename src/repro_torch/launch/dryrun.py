@@ -2,7 +2,8 @@
 ``meta`` tensors (no allocation, no card), reckon each device's resident
 bytes from the sharding rules, and emit the roofline terms.  The port of
 ``repro.launch.dryrun``, which lowers and compiles each step for 512
-forced host devices.
+forced host devices and reads each device's share from the compiled
+module.
 
 What a record holds, and how it differs from JAX's:
   * per-device resident bytes are exact: the step's arguments plus its
@@ -10,14 +11,26 @@ What a record holds, and how it differs from JAX's:
     leaf at its ``NamedSharding.shard_shape`` (JAX's ``hbm_resident``
     without the temporaries, which a trace on ``meta`` cannot see:
     ``temp_size_in_bytes`` is null);
-  * FLOPs and bytes are counted over the whole step
-    (``launch/hlo.analyze_step``) and split evenly over the chips
-    (``"per_device": "even_split"``): the count runs on ``meta`` with no
-    shard context.  Every family's step runs on DTensor, so a
-    partitioned count (rank 0 of the step on DTensor over a fake process
-    group, ROADMAP queue 1, item 6.8b) can take every config;
-    ``collective_bytes_per_device`` is null on a mesh larger than one
-    card, 0 on ``1x1``;
+  * FLOPs, bytes and collectives are rank 0's (``"per_device":
+    "rank0"``): on a mesh larger than one card the step runs as the
+    DTensor program the ranks of a live mesh run, over a ``"fake"``
+    process group of the mesh's size (``fake_world``: this process is
+    rank 0, a collective moves nothing and returns a buffer of its
+    result's shape) and a ``DeviceMesh`` of the mesh's shape; each
+    argument is a DTensor over a ``meta`` shard of rank 0's shape, laid
+    out by the bundle's ``in_shardings``; ``bundle.fn`` alone runs under
+    ``launch/hlo.StepCounter``, which counts rank 0's local ops and the
+    ``_c10d_functional`` collectives DTensor inserts (a collective's
+    result bytes, twice that for an all-reduce, as JAX's walk counts
+    them).  ``collectives`` gives each collective's count and bytes;
+    ``1x1`` runs the plain step with no process group (collective bytes
+    0);
+  * the layouts are the port's: DTensor picks each op's layout from the
+    placements it is given, where XLA's partitioner picks its own, so
+    the collectives may differ from JAX's even where the FLOPs agree.
+    The mesh is a ``"cpu"`` mesh, on which DTensor moves a shard from
+    one dim to another by an all-gather and a slice where the cards
+    (NCCL) run an all-to-all: such a move counts the gathered bytes;
   * a number here is a reckoning on ``meta`` (``"counted_on"``), not a
     measurement on a device.
 
@@ -30,18 +43,24 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
 from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.launch.hlo import StepCounter
 from repro_torch.launch.mesh import HW, abstract_mesh
 from repro_torch.launch.roofline import derive_roofline
 from repro_torch.launch.steps import make_bundle
+from repro_torch.nn import sharding as shd
 from repro_torch.nn.sharding import RULE_SETS, NamedSharding
 
 # the JAX package's assigned architectures (repro.configs.ASSIGNED)
@@ -121,13 +140,87 @@ def resident_bytes(bundle, outputs) -> Dict[str, int]:
             "temp_size_in_bytes": None}
 
 
+@contextlib.contextmanager
+def fake_world(size: int):
+    """A ``"fake"`` process group of ``size`` ranks for the block, this
+    process rank 0 (``FakeStore``: no peer is started and no byte moves).
+    A fake group of that size already in place is used as it is; any
+    other process group refuses the count."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != size:
+            raise RuntimeError(
+                f"the partitioned count needs a fake process group of "
+                f"{size} ranks; this process holds a "
+                f"{dist.get_backend()!r} group of {dist.get_world_size()}")
+        yield
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def rank0_args(values, shardings, device_mesh):
+    """``values`` (a tree of ``meta`` tensors) as DTensors on
+    ``device_mesh``, each laid out by the ``NamedSharding`` at its place
+    in ``shardings`` over a ``meta`` local tensor of rank 0's shard
+    shape: the arguments as a mesh holds them, made without a scatter."""
+    if isinstance(shardings, NamedSharding):
+        from torch.distributed.tensor import DTensor
+        local = torch.empty(shardings.shard_shape(values.shape),
+                            dtype=values.dtype, device="meta")
+        return DTensor.from_local(
+            local, device_mesh, shd.placements(shardings.spec, device_mesh),
+            run_check=False, shape=values.shape, stride=values.stride())
+    if isinstance(shardings, dict):
+        return {k: rank0_args(values[k], shardings[k], device_mesh)
+                for k in shardings}
+    if isinstance(shardings, (tuple, list)):
+        return type(values)(rank0_args(v, s, device_mesh)
+                            for v, s in zip(values, shardings))
+    return values                       # a None leaf
+
+
+def rank0_count(bundle, device_mesh, values=None):
+    """(outputs, ``HloAnalysis``) of rank 0 running ``bundle.fn`` on
+    ``device_mesh``: its arguments (``values``, by default the bundle's
+    ``abstract_args``) laid out by ``rank0_args``, and only ``bundle.fn``
+    under the counter."""
+    args = rank0_args(bundle.abstract_args if values is None else values,
+                      bundle.in_shardings, device_mesh)
+    with StepCounter() as counter:
+        outputs = bundle.fn(*args)
+    return outputs, counter.analysis()
+
+
+def count_step(cfg, shape, mesh: str, rules: str):
+    """(bundle, outputs, rank 0's ``HloAnalysis``, count seconds) of one
+    step on ``mesh`` (a name in ``MESHES``): with no process group on one
+    card; else ``rank0_count`` on a fake world of the mesh's size."""
+    dims, names = MESHES[mesh]
+    if math.prod(dims) == 1:
+        bundle = make_bundle(cfg, shape, abstract_mesh(dims, names),
+                             RULE_SETS[rules])
+        t0 = time.time()
+        with StepCounter() as counter:
+            outputs = bundle.fn(*bundle.abstract_args)
+        return bundle, outputs, counter.analysis(), time.time() - t0
+    from torch.distributed.device_mesh import init_device_mesh
+    with fake_world(math.prod(dims)):
+        dm = init_device_mesh("cpu", dims, mesh_dim_names=names)
+        bundle = make_bundle(cfg, shape, dm, RULE_SETS[rules])
+        t0 = time.time()
+        outputs, hlo = rank0_count(bundle, dm)
+        return bundle, outputs, hlo, time.time() - t0
+
+
 def dryrun_one(arch: str, shape_name: str, *, mesh: str = "16x16",
                rules: str = "default", verbose: bool = True,
-               overrides: Optional[dict] = None, tag: str = "",
-               memo: Optional[dict] = None) -> dict:
-    """One combination's record.  ``memo`` (a dict the caller keeps)
-    carries a step's count to the next mesh: the step, and so its count,
-    does not depend on the mesh."""
+               overrides: Optional[dict] = None, tag: str = "") -> dict:
+    """One combination's record: rank 0's count (``count_step``)."""
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -142,42 +235,29 @@ def dryrun_one(arch: str, shape_name: str, *, mesh: str = "16x16",
         return rec
 
     t0 = time.time()
-    m = abstract_mesh(*MESHES[mesh])
-    chips = m.size
-    bundle = make_bundle(cfg, shape, m, RULE_SETS[rules])
-    t_build = time.time() - t0
-    key = (arch, shape_name, repr(sorted((overrides or {}).items())))
-    if memo is not None and key in memo:
-        hlo, outputs, t_count = memo[key]
-    else:
-        with StepCounter() as counter:
-            outputs = bundle.fn(*bundle.abstract_args)
-        t_count = time.time() - t0 - t_build
-        hlo = counter.analysis()
-        if memo is not None:
-            memo[key] = hlo, outputs, t_count
+    bundle, outputs, hlo, t_count = count_step(cfg, shape, mesh, rules)
+    t_build = time.time() - t0 - t_count
+    chips = math.prod(MESHES[mesh][0])
 
     mem = resident_bytes(bundle, outputs)
     hbm_resident = (mem["argument_size_in_bytes"]
                     + mem["output_size_in_bytes"]
                     - mem["alias_size_in_bytes"])
-    coll = 0.0 if chips == 1 else None
     rl = derive_roofline(
         cfg, shape, chips=chips,
-        hlo_flops_per_device=hlo.flops / chips,
-        hlo_bytes_per_device=hlo.hbm_bytes / chips,
-        collective_bytes_per_device=coll)
+        hlo_flops_per_device=hlo.flops,
+        hlo_bytes_per_device=hlo.hbm_bytes,
+        collective_bytes_per_device=hlo.collective_bytes)
 
     rec.update({
         "chips": chips,
         "build_s": round(t_build, 1),
         "count_s": round(t_count, 1),
-        "flops_total": hlo.flops,
-        "hbm_bytes_total": hlo.hbm_bytes,
-        "per_device": "even_split",
-        "hlo_flops_per_device": hlo.flops / chips,
-        "hlo_bytes_per_device": hlo.hbm_bytes / chips,
-        "collective_bytes_per_device": coll,
+        "per_device": "rank0",
+        "hlo_flops_per_device": hlo.flops,
+        "hlo_bytes_per_device": hlo.hbm_bytes,
+        "collective_bytes_per_device": hlo.collective_bytes,
+        "collectives": hlo.as_dict()["per_collective"],
         "memory_analysis": mem,
         "hbm_resident_bytes": hbm_resident,
         "fits_hbm": bool(hbm_resident <= HW["hbm_bytes"]),
@@ -185,9 +265,9 @@ def dryrun_one(arch: str, shape_name: str, *, mesh: str = "16x16",
     })
     if verbose:
         print(f"[dryrun] {arch} x {shape_name} x {mesh} ({rules}), "
-              f"reckoned on meta: count {t_count:.1f}s, flops/dev "
-              f"{rec['hlo_flops_per_device']:.3e}, bytes/dev "
-              f"{rec['hlo_bytes_per_device']:.3e} (even split), "
+              f"reckoned on meta: count {t_count:.1f}s, rank 0 of "
+              f"{chips}: flops {hlo.flops:.3e}, bytes {hlo.hbm_bytes:.3e}, "
+              f"collective bytes {hlo.collective_bytes:.3e}, "
               f"dominant={rl.dominant}, "
               f"resident={hbm_resident / 1e9:.2f}GB", flush=True)
     return rec
@@ -217,7 +297,7 @@ def main(argv=None):
                   else ["2x16x16"] if args.multi_pod
                   else ["1x1"] if args.one_card else ["16x16"])
 
-    results, memo = [], {}
+    results = []
     for arch in archs:
         for shape_name in shapes:
             for mesh in mesh_names:
@@ -228,7 +308,7 @@ def main(argv=None):
                     continue
                 try:
                     rec = dryrun_one(arch, shape_name, mesh=mesh,
-                                     rules=args.rules, memo=memo)
+                                     rules=args.rules)
                 except Exception as e:  # noqa: BLE001  (one record each)
                     rec = {"arch": arch, "shape": shape_name, "mesh": mesh,
                            "rules": args.rules, "status": "error",

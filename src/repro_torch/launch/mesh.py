@@ -28,7 +28,6 @@ import dataclasses
 import datetime
 import math
 import multiprocessing
-import os
 import tempfile
 import time
 import traceback
@@ -137,14 +136,17 @@ def make_device_mesh(model_axis: Optional[int] = None, *,
 
 # ---------------------------------------------------------------- launcher
 def _rank_main(fn, rank: int, world: int, device_type: str, backend: str,
-               tmp: str, args: Tuple) -> None:
+               tmp: str, threads: int) -> None:
     """One rank: join the world through ``file://`` in ``tmp``, run
-    ``fn(*args)``, save what it returns (or the traceback) in ``tmp``."""
+    ``fn(*args)`` on the arguments saved in ``tmp`` (on the CPU with
+    ``threads`` intra-op threads), save what it returns (or the
+    traceback) in ``tmp``."""
     out = Path(tmp)
     try:
         kw: Dict[str, Any] = {}
-        if device_type == "cpu":        # the ranks share the host's cores
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        args = torch.load(out / "args.pt", weights_only=False)
+        if device_type == "cpu":        # the caller's threads, shared
+            torch.set_num_threads(threads)
         if device_type == "cuda":
             card = rank % torch.cuda.device_count()
             torch.cuda.set_device(card)
@@ -174,7 +176,10 @@ def launch(fn: Callable[..., Any], world: int, *, device_type: str = "cuda",
 
     Each rank is a spawned process: ``fn`` must be importable (a
     module-level function).  They meet through ``file://`` in a
-    temporary directory, so no TCP port can collide.  ``gloo`` on the
+    temporary directory, so no TCP port can collide, and read ``args``
+    from a file there: sent down each rank's pipe, arguments larger than
+    the pipe would hold each rank's start until it had read them, and the
+    ranks would start one after another.  ``gloo`` on the
     CPU, ``nccl`` on the cards (rank r on ``cuda:r``, one card a rank:
     ``nccl`` refuses two ranks on one card); ``backend="gloo"`` with
     ``device_type="cuda"`` puts rank r on card r modulo the cards.  The kernels are built here
@@ -182,7 +187,11 @@ def launch(fn: Callable[..., Any], world: int, *, device_type: str = "cuda",
     are not all done within ``timeout`` seconds of the host clock, every
     rank is killed and this raises with the first failing rank's
     traceback (``timeout=None``: no deadline; a collective that waits
-    on a dead rank still fails after the process group's 30 minutes)."""
+    on a dead rank still fails after the process group's 30 minutes).
+    The ranks share the caller's intra-op threads
+    (``torch.get_num_threads()``, at least one a rank): ranks on the CPU
+    that each took the host's cores would oversubscribe it, the more so
+    beside other processes."""
     backend = backend or ("nccl" if device_type == "cuda" else "gloo")
     if device_type == "cuda":
         if backend == "nccl" and torch.cuda.device_count() < world:
@@ -196,9 +205,11 @@ def launch(fn: Callable[..., Any], world: int, *, device_type: str = "cuda",
                          f"'cpu' nor 'cuda'")
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="repro_mesh_") as tmp:
+        torch.save(args, Path(tmp, "args.pt"))
+        threads = max(1, torch.get_num_threads() // world)
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, world, device_type, backend, tmp,
-                                   args))
+                                   threads))
                  for r in range(world)]
         for p in procs:
             p.start()

@@ -180,28 +180,94 @@ def single(name, tree, inp):
     return out
 
 
+# the meshes on which rank 0's count of each step is held to the fake
+# process group's (test_rank0_count_equals_the_fake_groups)
+COUNTED_MESHES = ((2, 2), (1, 4))
+
+
+def start_child(args, tmp, name):
+    """A Python child (``args`` after the interpreter) on the CPU, its
+    output to ``tmp/name.log``."""
+    log = open(tmp / f"{name}.log", "w")
+    return subprocess.Popen([sys.executable, *args],
+                            env=dict(os.environ, JAX_PLATFORMS="cpu"),
+                            stdout=log, stderr=subprocess.STDOUT), log
+
+
+def finish_child(proc_log, tmp, name):
+    """Wait for a ``start_child`` child (``SPAWN_S`` at most) and load its
+    pickled result ``tmp/name.pkl``."""
+    proc, log = proc_log
+    try:
+        proc.wait(timeout=SPAWN_S)
+    finally:
+        proc.kill()
+        log.close()
+    assert proc.returncode == 0, (tmp / f"{name}.log").read_text()[-4000:]
+    with open(tmp / f"{name}.pkl", "rb") as f:
+        return pickle.load(f)
+
+
+def start_fake_counts(jobs, tmp):
+    """``ranks.fake_counts(jobs)`` in a child process (its process group
+    lives and dies there)."""
+    with open(tmp / "jobs.pkl", "wb") as f:
+        pickle.dump(jobs, f)
+    return start_child([ranks.__file__, str(tmp / "jobs.pkl"),
+                        str(tmp / "fake.pkl")], tmp, "fake")
+
+
+def family_jobs(runs, names, inputs, skip=()):
+    """``ranks.fake_counts``'s jobs for ``family_steps``' counted calls
+    on COUNTED_MESHES: {(name, shape, rules, kind): job}, the batch inputs
+    in the dtypes the worlds feed (numpy's integers as int64)."""
+    jobs = {}
+    for shape, rules in runs:
+        for name in names:
+            if shape not in COUNTED_MESHES or (name, shape, rules) in skip:
+                continue
+            src = {"src_embeds": "float32"} if "src" in inputs[name] else {}
+            for kind, dtypes in (
+                    ("prefill", dict(tokens="int64", **src)),
+                    ("decode", dict(token="int64", pos="int64")),
+                    ("train", dict(tokens="int64", labels="int64", **src))):
+                jobs[(name, shape, rules, kind)] = (
+                    name, "kernel", kind, (B, S), shape, rules, dtypes)
+    return jobs
+
+
 def run_worlds(runs, names, trees, inputs, tmp, skip=()):
-    """JAX's (2, 2) bundles (a subprocess of four forced host devices,
-    started first) beside ``families_on_meshes`` on four gloo ranks:
-    (the port's results on rank 0, JAX's)."""
+    """JAX's (2, 2) bundles (a subprocess of four forced host devices) and
+    the fake process group's counts (``family_jobs``, a subprocess),
+    started first, beside ``families_on_meshes`` on four gloo ranks, a
+    world for each family on each (mesh, rules) of ``runs``: (the port's
+    results on rank 0, each counted run's also under ``"fake_counts"``,
+    JAX's).  A world a family and mesh keeps each world short on a loaded
+    host: its ranks meet at every collective, and each meeting waits for
+    the slowest rank's turn on the cores."""
     with open(tmp / "in.pkl", "wb") as f:
         pickle.dump(dict(inputs, names=names, trees=trees), f)
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    jax_proc = subprocess.Popen(
-        [sys.executable, "-c", JAX_SCRIPT, str(tmp / "in.pkl"),
-         str(tmp / "jax.pkl")], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    jax_proc = start_child(["-c", JAX_SCRIPT, str(tmp / "in.pkl"),
+                            str(tmp / "jax.pkl")], tmp, "jax")
+    fake = start_fake_counts(family_jobs(runs, names, inputs, skip), tmp)
     try:
-        port = mesh_lib.launch(
-            ranks.families_on_meshes, 4, device_type="cpu",
-            timeout=SPAWN_S,
-            args=(runs, names, trees, dict(inputs, skip=set(skip))))[0]
-        log, _ = jax_proc.communicate(timeout=SPAWN_S)
+        port = {}
+        for run in runs:
+            for name in names:
+                if (name, *run) in skip:
+                    continue
+                port.update(mesh_lib.launch(
+                    ranks.families_on_meshes, 4, device_type="cpu",
+                    timeout=SPAWN_S,
+                    args=([run], [name], {name: trees[name]}, inputs))[0])
+        jx = finish_child(jax_proc, tmp, "jax")
+        counts = finish_child(fake, tmp, "fake")
     finally:
-        jax_proc.kill()
-    assert jax_proc.returncode == 0, log
-    with open(tmp / "jax.pkl", "rb") as f:
-        return port, pickle.load(f)
+        jax_proc[0].kill()
+        fake[0].kill()
+    for (name, shape, rules, kind), c in counts.items():
+        port[(name, shape, rules)].setdefault("fake_counts", {})[kind] = c
+    return port, jx
 
 
 def leaves(tree):

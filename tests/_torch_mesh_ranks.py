@@ -1,7 +1,9 @@
-"""Rank functions for ``tests/test_torch_mesh.py``: each runs in every rank
-of a ``gloo`` world that ``repro_torch.launch.mesh.launch`` starts, and
-returns its results (full tensors) on rank 0.  Kept apart from the test
-file so that the ranks import the port and not JAX."""
+"""Rank functions for ``tests/test_torch_mesh*.py``: each runs in every
+rank of a ``gloo`` world that ``repro_torch.launch.mesh.launch`` starts,
+and returns its results (full tensors) on rank 0; and ``fake_counts``,
+the same steps counted on a fake process group in a child process
+(``python _torch_mesh_ranks.py jobs.pkl counts.pkl``).  Kept apart from
+the test files so that the ranks import the port and not JAX."""
 import dataclasses
 
 import numpy as np
@@ -14,6 +16,7 @@ from repro_torch.configs.base import InputShape
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
+from repro_torch.launch.hlo import StepCounter
 from repro_torch.launch.serve import generate
 from repro_torch.models.api import build_model
 from repro_torch.nn import sharding as shd
@@ -21,6 +24,62 @@ from repro_torch.nn.layers import ShardCtx
 from repro_torch.optim import adamw
 
 RULES = shd.DEFAULT_RULES
+
+
+def counted_on_mesh(bundle, dm, counts, key):
+    """``steps.on_mesh(bundle, dm)`` whose first call runs ``bundle.fn``
+    alone under ``launch.hlo.StepCounter`` (the arguments laid out before
+    it, the results after, as ``on_mesh`` lays them out): this rank's
+    FLOPs, bytes and collectives go into ``counts[key]``, with the dtype
+    of each batch input."""
+    def run(*args):
+        args = tuple(shd.distribute(a, s, dm)
+                     for a, s in zip(args, bundle.in_shardings))
+        if key in counts:
+            out = bundle.fn(*args)
+        else:
+            with StepCounter() as c:
+                out = bundle.fn(*args)
+            counts[key] = dict(c.analysis().as_dict(), batch={
+                k: str(v.dtype).removeprefix("torch.")
+                for k, v in args[-1].items()})
+        return shd.distribute(out, bundle.out_shardings, dm)
+    return run
+
+
+def fake_counts(jobs):
+    """Rank 0's count of each step of ``jobs`` on a ``"fake"`` process
+    group of four ranks (``launch.dryrun.rank0_count``: the arguments
+    DTensors over ``meta`` shards): {key: (arch, attention_impl, kind,
+    (batch, seq), mesh shape, rule set, {batch input: dtype})} -> {key:
+    counts as ``counted_on_mesh`` keeps them}.  The batch inputs take the
+    dtypes the live worlds feed; every config is ``f32_config``'s, with
+    ``attention_impl`` where it is not None."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import dryrun
+    out = {}
+    with dryrun.fake_world(4):
+        meshes = {}
+        for key, (name, impl, kind, (b, s), shape, rules, dtypes) \
+                in jobs.items():
+            if shape not in meshes:
+                meshes[shape] = init_device_mesh(
+                    "cpu", shape, mesh_dim_names=mesh_lib.MESH_AXES)
+            kw = dict(opt_state_dtype=torch.float32) if kind == "train" \
+                else {}
+            over = {} if impl is None else dict(attention_impl=impl)
+            bundle = steps.make_bundle(
+                f32_config(name, **over),
+                InputShape("t", s, b, kind), meshes[shape],
+                shd.RULE_SETS[rules], **kw)
+            values = list(bundle.abstract_args)
+            values[-1] = {k: torch.empty(v.shape, device="meta",
+                                         dtype=getattr(torch, dtypes[k]))
+                          for k, v in values[-1].items()}
+            _, a = dryrun.rank0_count(bundle, meshes[shape], tuple(values))
+            out[key] = dict(a.as_dict(), batch=dtypes)
+    return out
+
 
 
 def f32_config(name, **over):
@@ -81,11 +140,12 @@ def lm_steps(dm, llama_np, repro_np, prompt, decode_steps, train_batches,
     turn) and ``serve.generate`` (the prompt's first ``gen_prompt``
     tokens, ``gen_len`` new ones, the decode's cache length) on the mesh
     ``dm``; repro-100m.reduced() (fp32): three train steps through the
-    train bundle; the flash op's layouts.  Weights: the JAX trees
-    given."""
+    train bundle; the flash op's layouts.  Each step's first call is
+    counted (``counted_on_mesh``: ``out["counts"]``).  Weights: the JAX
+    trees given."""
     b, s = prompt.shape
     prompt = torch.as_tensor(prompt)
-    out = {"mesh": dict(zip(dm.mesh_dim_names, dm.shape))}
+    out = {"mesh": dict(zip(dm.mesh_dim_names, dm.shape)), "counts": {}}
     cfg = f32_config("llama3.2-1b")
     params = convert.lm_params_from_jax(llama_np, "cpu")
     shape_ok = []
@@ -95,14 +155,15 @@ def lm_steps(dm, llama_np, repro_np, prompt, decode_steps, train_batches,
             InputShape("t", s, b, "prefill"), dm, RULES)
         dp = shd.distribute(params, bundle.in_shardings[0], dm)
         shape_ok.append(_shard_shapes_agree(dp, bundle.in_shardings[0]))
-        logits = steps.on_mesh(bundle, dm)(dp, {"tokens": prompt})
+        logits = counted_on_mesh(bundle, dm, out["counts"],
+                                 f"prefill_{route}")(dp, {"tokens": prompt})
         out[f"prefill_{route}"] = shd.full(logits)
         out[f"prefill_{route}_placements"] = [repr(p)
                                               for p in logits.placements]
 
     bundle = steps.make_decode_bundle(
         cfg, InputShape("t", s + gen_len, b, "decode"), dm, RULES)
-    run = steps.on_mesh(bundle, dm)
+    run = counted_on_mesh(bundle, dm, out["counts"], "decode")
     cache = shd.distribute(build_model(cfg).init_cache(b, s + gen_len,
                                                        device="cpu"),
                            bundle.in_shardings[1], dm)
@@ -127,7 +188,7 @@ def lm_steps(dm, llama_np, repro_np, prompt, decode_steps, train_batches,
         rcfg, InputShape("t", train_batches[0]["tokens"].shape[1],
                          train_batches[0]["tokens"].shape[0], "train"), dm,
         RULES, opt_state_dtype=torch.float32)
-    run = steps.on_mesh(bundle, dm)
+    run = counted_on_mesh(bundle, dm, out["counts"], "train")
     p = shd.distribute(rparams, bundle.in_shardings[0], dm)
     shape_ok.append(_shard_shapes_agree(p, bundle.in_shardings[0]))
     st = adamw(3e-4, weight_decay=0.1, state_dtype=torch.float32).init(p)
@@ -225,8 +286,9 @@ def family_steps(dm, rules_name, name, jax_np, inp):
     it, ``inp["decode"]`` decode steps through the decode bundle (the
     encoder-decoder's cross cache built on the mesh), the loss's
     gradients, and two train steps through the train bundle; for an
-    attention-free family, ``_gla_layouts``.  Results gathered to full
-    CPU tensors."""
+    attention-free family, ``_gla_layouts``.  Each bundle's first call
+    is counted (``counted_on_mesh``: ``out["counts"]``).  Results
+    gathered to full CPU tensors."""
     from repro_torch.kernels.ssm_scan import ops as ss
     rules = shd.RULE_SETS[rules_name]
     cfg = f32_config(name, attention_impl="kernel")
@@ -238,7 +300,8 @@ def family_steps(dm, rules_name, name, jax_np, inp):
     batch = {"tokens": prompt}
     if cfg.encdec is not None:
         batch["src_embeds"] = torch.as_tensor(inp["src"])
-    out = {"mesh": dict(zip(dm.mesh_dim_names, dm.shape)), "gla_calls": []}
+    out = {"mesh": dict(zip(dm.mesh_dim_names, dm.shape)), "gla_calls": [],
+           "counts": {}}
 
     bundle = steps.make_prefill_bundle(cfg, InputShape("t", s, b,
                                                        "prefill"), dm, rules)
@@ -247,7 +310,8 @@ def family_steps(dm, rules_name, name, jax_np, inp):
     plain = ss.gla_chunked_plain
     ss.gla_chunked_plain = _recording(out["gla_calls"], plain)
     try:
-        logits = steps.on_mesh(bundle, dm)(dp, batch)
+        logits = counted_on_mesh(bundle, dm, out["counts"],
+                                 "prefill")(dp, batch)
     finally:
         ss.gla_chunked_plain = plain
     out["prefill"] = shd.full(logits)
@@ -260,7 +324,7 @@ def family_steps(dm, rules_name, name, jax_np, inp):
 
     bundle = steps.make_decode_bundle(
         cfg, InputShape("t", s, b, "decode"), dm, rules)
-    run = steps.on_mesh(bundle, dm)
+    run = counted_on_mesh(bundle, dm, out["counts"], "decode")
     cache = model.init_cache(b, s, device="cpu")
     if cfg.encdec is not None:
         cache["cross"] = model.build_cross_cache(
@@ -287,7 +351,7 @@ def family_steps(dm, rules_name, name, jax_np, inp):
     (loss, _), grads = steps.value_and_grad(
         lambda p: model.loss(p, dtb, ctx), dp)
     out["loss"], out["grads"] = float(shd.full(loss)), shd.full(grads)
-    run = steps.on_mesh(bundle, dm)
+    run = counted_on_mesh(bundle, dm, out["counts"], "train")
     st = adamw(3e-4, weight_decay=0.1, state_dtype=torch.float32).init(dp)
     p, losses = dp, []
     for labels in inp["labels"]:
@@ -312,8 +376,16 @@ def families_on_meshes(runs, names, jax_trees, inp):
         dm = init_device_mesh("cpu", shape,
                               mesh_dim_names=mesh_lib.MESH_AXES)
         for name in names:
-            if (name, shape, rules) in inp["skip"]:
-                continue
             out[(name, shape, rules)] = family_steps(
                 dm, rules, name, jax_trees[name], inp[name])
     return out if dist.get_rank() == 0 else None
+
+
+if __name__ == "__main__":
+    # python _torch_mesh_ranks.py jobs.pkl counts.pkl: fake_counts
+    import pickle
+    import sys
+    with open(sys.argv[1], "rb") as f:
+        jobs = pickle.load(f)
+    with open(sys.argv[2], "wb") as f:
+        pickle.dump(fake_counts(jobs), f)

@@ -9,9 +9,7 @@ parameter draws.  Weights are JAX's, carried across by
 ``convert.lm_params_from_jax``.  The other families on a mesh:
 ``tests/test_torch_mesh_ssm.py`` and ``tests/test_torch_mesh_moe.py``."""
 import dataclasses
-import os
 import pickle
-import subprocess
 import sys
 from pathlib import Path
 
@@ -34,6 +32,7 @@ from repro_torch.nn.param import tree_leaves
 from repro_torch.optim import adamw
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+import _torch_mesh_families as fam  # noqa: E402
 import _torch_mesh_ranks as ranks  # noqa: E402
 
 torch.set_num_threads(2)
@@ -134,30 +133,54 @@ def inputs():
                 decode=DECODE, gen=GEN)
 
 
+def _fake_jobs():
+    """``ranks.fake_counts``'s jobs for ``lm_steps``' counted calls on
+    the counted meshes, the batch inputs in the dtypes the world feeds."""
+    jobs = {}
+    for mesh in fam.COUNTED_MESHES:
+        for route in ("dot", "kernel"):
+            jobs[(mesh, f"prefill_{route}")] = (
+                "llama3.2-1b", route, "prefill", (B, S), mesh, "default",
+                {"tokens": "int64"})
+        jobs[(mesh, "decode")] = (
+            "llama3.2-1b", None, "decode", (B, S + GEN), mesh, "default",
+            {"token": "int64", "pos": "int64"})
+        jobs[(mesh, "train")] = (
+            "repro-100m", None, "train", (B, S), mesh, "default",
+            {"tokens": "int32", "labels": "int32"})
+    return jobs
+
+
 @pytest.fixture(scope="module")
 def runs(inputs, tmp_path_factory):
-    """JAX's (2, 2) run (a subprocess of four forced host devices),
-    started first, beside the port's run on each mesh of MESHES (four
-    gloo ranks each)."""
+    """JAX's (2, 2) run (a subprocess of four forced host devices) and the
+    fake process group's counts (``_fake_jobs``, a subprocess), started
+    first, beside the port's run on each mesh of MESHES (a world of four
+    gloo ranks each, as ``_torch_mesh_families.run_worlds`` runs them);
+    each counted mesh's fake counts under ``"fake_counts"``."""
     tmp = tmp_path_factory.mktemp("mesh")
     with open(tmp / "in.pkl", "wb") as f:
         pickle.dump(inputs, f)
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    jax_proc = subprocess.Popen(
-        [sys.executable, "-c", JAX_SCRIPT, str(tmp / "in.pkl"),
-         str(tmp / "jax.pkl")], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    jax_proc = fam.start_child(["-c", JAX_SCRIPT, str(tmp / "in.pkl"),
+                                str(tmp / "jax.pkl")], tmp, "jax")
+    fake = fam.start_fake_counts(_fake_jobs(), tmp)
     try:
-        port = mesh_lib.launch(
-            ranks.lm_steps_on_meshes, 4, device_type="cpu", timeout=SPAWN_S,
-            args=(MESHES, inputs["llama"], inputs["repro"], inputs["prompt"],
-                  DECODE, inputs["train"], GEN, GEN_PROMPT))[0]
-        log, _ = jax_proc.communicate(timeout=SPAWN_S)
+        port = {}
+        for mesh in MESHES:
+            port.update(mesh_lib.launch(
+                ranks.lm_steps_on_meshes, 4, device_type="cpu",
+                timeout=SPAWN_S,
+                args=([mesh], inputs["llama"], inputs["repro"],
+                      inputs["prompt"], DECODE, inputs["train"], GEN,
+                      GEN_PROMPT))[0])
+        jx = fam.finish_child(jax_proc, tmp, "jax")
+        counts = fam.finish_child(fake, tmp, "fake")
     finally:
-        jax_proc.kill()
-    assert jax_proc.returncode == 0, log
-    with open(tmp / "jax.pkl", "rb") as f:
-        return port, pickle.load(f)
+        jax_proc[0].kill()
+        fake[0].kill()
+    for (mesh, kind), c in counts.items():
+        port[mesh].setdefault("fake_counts", {})[kind] = c
+    return port, jx
 
 
 @pytest.fixture(scope="module")
@@ -202,6 +225,26 @@ def _np_leaves(tree):
     return [np.asarray(t, np.float64) for t in tree_leaves(
         convert.lm_params_to_numpy(tree) if isinstance(
             tree_leaves(tree)[0], torch.Tensor) else tree)]
+
+
+# ------------------------------------- rank 0's count vs a fake group's
+@pytest.mark.parametrize("kind", ["prefill_dot", "prefill_kernel", "decode",
+                                  "train"])
+@pytest.mark.parametrize("mesh", fam.COUNTED_MESHES,
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+def test_rank0_count_equals_the_fake_groups(runs, mesh, kind):
+    """Rank 0's count of each step's first call in the live world
+    (``launch.hlo.StepCounter`` around ``bundle.fn``) equals the count of
+    the same step on a ``"fake"`` process group of four ranks over
+    ``meta`` shards (``launch.dryrun.rank0_count``), exactly: FLOPs,
+    bytes, each collective's count and bytes.  Both take the same route:
+    the flash op (its CPU implementation in the world, its fake on
+    ``meta``) on the prefill's kernel route and the decode, counted by
+    its formula at the local shapes its sharding rule gives; the plain
+    attention on the train step, whose inputs require grad."""
+    got = runs[0][mesh]
+    assert got["fake_counts"][kind] == got["counts"][kind]
+    assert got["counts"][kind]["per_collective"], "no collective counted"
 
 
 # ------------------------------------------------------- each mesh vs one

@@ -47,6 +47,27 @@ def _case_id(case):
     return f"{case[0]}-{fam.mesh_id(case[1])}"
 
 
+# ------------------------------------- rank 0's count vs a fake group's
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if c[1][0] in fam.COUNTED_MESHES],
+                         ids=_case_id)
+def test_rank0_count_equals_the_fake_groups(runs, case, kind):
+    """Rank 0's count of each step's first call in the live world
+    (``launch.hlo.StepCounter`` around ``bundle.fn``) equals the count of
+    the same step on a ``"fake"`` process group of four ranks over
+    ``meta`` shards (``launch.dryrun.rank0_count``), exactly: FLOPs,
+    bytes, each collective's count and bytes.  Both take the same route:
+    the ``gla_chunked`` op (its CPU implementation in the world, its
+    fake on ``meta``) and flash on the prefill and the decode, each
+    counted by its formula at the local shapes its sharding rule gives;
+    the plain scan and attention on the train step, whose inputs require
+    grad."""
+    got = runs[0][(case[0], *case[1])]
+    assert got["fake_counts"][kind] == got["counts"][kind]
+    assert got["counts"][kind]["per_collective"], "no collective counted"
+
+
 # ------------------------------------------------------- each mesh vs one
 @pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_prefill_on_mesh_matches_one_process(runs, single, case):

@@ -16,8 +16,9 @@ in fp64 against the same in fp32 (``Fp64Products``), which moves
 nothing but fp32's rounding of the sums.
 
 ``collectives``: which tensors DTensor's redistributions move on rank
-0 in a prefill: each collective's buffer shape, dtype and count, and
-the bytes by collective (an all-gather's output, any other's input).
+0 in a prefill: each collective's result shape, dtype and count, and
+the bytes by collective, as ``launch.hlo.StepCounter`` counts them (a
+collective's result bytes, twice that for an all-reduce).
 
     PYTHONPATH=src python3 tools/mesh_bf16_gap.py gap
     PYTHONPATH=src python3 tools/mesh_bf16_gap.py gap --archs zamba2-7b \\
@@ -36,7 +37,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 import torch  # noqa: E402
 from torch.distributed.tensor import DTensor, Replicate  # noqa: E402
 from torch.overrides import TorchFunctionMode  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+
+from repro_torch.launch.hlo import StepCounter  # noqa: E402
 
 PRODUCTS = (torch.einsum, torch.matmul, torch.Tensor.matmul,
             torch.Tensor.__matmul__)
@@ -73,32 +75,15 @@ class Fp64Products(Fp32Products):
     WIDE = torch.float64
 
 
-class Collectives(TorchDispatchMode):
-    """Each collective DTensor runs on this rank: {(name, shape, dtype):
-    [count, bytes]}; DTensor ops are let through (``NotImplemented``)
-    so that the collectives they lower to are seen."""
+class Collectives(StepCounter):
+    """``launch.hlo.StepCounter`` on this rank: ``seen`` is each
+    collective DTensor runs, {(collective, result shape, dtype): [count,
+    bytes]} (the counter's rule: result bytes, twice that for an
+    all-reduce)."""
 
-    def __init__(self):
-        super().__init__()
-        self.seen = {}
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if any(t is DTensor for t in types):
-            return NotImplemented
-        out = func(*args, **(kwargs or {}))
-        name = getattr(func, "__name__", str(func)).split(".")[0]
-        if getattr(func, "namespace", "") in ("_c10d_functional", "c10d") \
-                and any(c in name.replace("_", "") for c in (
-                    "allgather", "reducescatter", "allreduce", "alltoall",
-                    "broadcast")):
-            buf = out if "gather" in name else args[0]
-            for t in buf if isinstance(buf, (list, tuple)) else [buf]:
-                if isinstance(t, torch.Tensor):
-                    key = (name, tuple(t.shape), str(t.dtype))
-                    c = self.seen.setdefault(key, [0, 0])
-                    c[0] += 1
-                    c[1] += t.numel() * t.element_size()
-        return out
+    @property
+    def seen(self):
+        return dict(self.buffers)
 
 
 def _config(arch):
