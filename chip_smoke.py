@@ -72,14 +72,15 @@ Phases, each of which raises on failure (the script then exits nonzero):
              default run (channel-drift, 8 devices, 5 rounds; a pool of
              8, one ``alpha_combine`` kernel a round), then device-churn
              at 16 devices for 3 rounds (4 spares, a pool of 20: two
-             kernels a round; cold solves at a quarter of the budget,
-             4 x 300 inner steps), counted; each round's phase walls from
+             kernels a round; every solve capped at CUT_SOLVER's 2
+             outer iterations, cold ones at 2 x 150 inner steps),
+             counted; each round's phase walls from
              the trace fields, the solves' inner steps from the trace
              events; the kernel against its plain version on the last
              round's own transfer inputs (rtol/atol 1e-5).
 4d. sim-async — the simulator's async, drift and fault/resume paths
              through the same CLI run (``--trace``), every cold solve
-             at a quarter of the budget (4 x 300 inner steps), counted:
+             at CUT_SOLVER's budget (2 x 150 inner steps), counted:
              async-gossip (8 devices, the CLI's async defaults, 6
              ticks) and feature-drift-async (8 devices, 5 ticks), where
              no kernel of the port runs (every count stays 0); each
@@ -98,9 +99,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
              runs agree, and the resumed rounds with the uninterrupted
              ones, on the decisions; the kernel against its plain
              version on the last round's transfer inputs.
-4e. sim-shard — the sharded device pool, counted, every cold solve at a
-             quarter of the default budget (4 x 300 inner steps): the
-             default run cut to 3 rounds through ``--mesh 1``, then at
+4e. sim-shard — the sharded device pool, counted, every cold solve at
+             CUT_SOLVER's budget (2 x 150 inner steps): the
+             default run cut to 2 rounds through ``--mesh 1``, then at
              an emulated mesh of 4 (every shard on this card) and on
              the single-device pool through the Python API: equal
              decisions,
@@ -109,13 +110,13 @@ Phases, each of which raises on failure (the script then exits nonzero):
              shard losses at an emulated mesh of 2 (6 devices, 4
              rounds): devices recovered, SIGKILLed after round 1 in a
              child and resumed to the straight run's decisions; the
-             pool's phases at N = 1024 (train, a 64-pair Algorithm-1
+             pool's phases at N = 512 (train, a 64-pair Algorithm-1
              batch, the transfer, the accuracy sweep) at mesh 1 and an
-             emulated mesh of 8, timed, each shard's (1024, 128) slab
+             emulated mesh of 8, timed, each shard's (512, 64) slab
              against the plain version (1e-5) and the transfer against
              the single-device pool's; the packed solver
              (``inner_impl="packed"``) against the structured one on the
-             main path's problem, capped at 3 x 300 steps (equal psi,
+             main path's problem, capped at 2 x 150 steps (equal psi,
              alpha within 1e-3), ms per Adam step of each.
 5. serve   — llama3.2-1b at full width (16 layers, seeded weights drawn
              on the card) with ``attention_impl="kernel"``: prefill of
@@ -495,12 +496,12 @@ FADA_FEAT_TOL = 1e-5
 # default run (8 devices, no spares: a pool of 8, the transfer's one
 # mma.sync kernel a round), then device-churn at 16 devices (4 spares: a
 # pool of 20, split + wgmma, two kernels a round), its cold solves at
-# QUARTER_SOLVER's budget: (scenario, devices, rounds, cut)
+# CUT_SOLVER's budget: (scenario, devices, rounds, cut)
 SIM_RUNS = [("channel-drift", 8, 5, False), ("device-churn", 16, 3, True)]
 SIM_TAGS = [f"{s}-n{n}-r{r}" for s, n, r, _ in SIM_RUNS]
 # the simulator's async and drift runs on the card, through the CLI with
 # its defaults (8 devices, 100 samples, 30 SGD steps, solver 150 warm,
-# clocks (1, 2, 4), n_active // 4 gossip pairs) but QUARTER_SOLVER's cold
+# clocks (1, 2, 4), n_active // 4 gossip pairs) but CUT_SOLVER's cold
 # solves (4d's fault/resume runs too): (scenario,
 # engine, devices, ticks), ticks cut for the script's time limit (12 and
 # 8 ticks until phase 4e took its share)
@@ -510,35 +511,36 @@ SIM_ASYNC_RUNS = [("async-gossip", "async-gossip", 8, 6),
 # (devices, rounds, the round after which the first run is SIGKILLed);
 # 5 rounds until phase 4e took its share
 SIM_FAULTY = (8, 4, 2)
-# phase 4e, the sharded pool: the CLI's default run cut to 3 rounds
+# phase 4e, the sharded pool: the CLI's default run cut to 2 rounds
 # ((scenario, devices, rounds)) at mesh 1 through the CLI, then at an
 # emulated mesh of SHARD_MESH (every shard on the one card) and on the
 # single-device pool through the Python API
-SHARD_RUN = ("channel-drift", 8, 3)
+SHARD_RUN = ("channel-drift", 8, 2)
 SHARD_MESH = 4
 # sync 'faulty' with shard losses at an emulated mesh of 2, the CLI's
 # defaults otherwise: (devices, rounds, the round after which the child
 # run is SIGKILLed)
 SHARD_FAULTY = (6, 4, 1)
-# the cold solves of phase 4e, of 4d and of 4c's device-churn run at a
-# quarter of the CLI's default budget (8 x 600 inner steps), for the
-# script's time limit: (solver_max_outer, solver_inner_steps), the warm
-# budget unchanged; the three pools of 4e (1) still share one budget.
+# the solves of phase 4e, of 4d and of 4c's device-churn run, for the
+# script's time limit: (solver_max_outer, solver_inner_steps), every
+# solve capped at 2 outer iterations, a cold one at 150 inner steps (a
+# sixteenth of the CLI's default 8 x 600), the warm inner budget (150)
+# unchanged; the three pools of 4e (1) still share one budget.
 # The CLI's default run (4c's first) keeps the whole budget
-QUARTER_SOLVER = (4, 300)
-QUARTER_ARGS = ["--solver-max-outer", str(QUARTER_SOLVER[0]),
-                "--solver-inner-steps", str(QUARTER_SOLVER[1])]
+CUT_SOLVER = (2, 150)
+CUT_ARGS = ["--solver-max-outer", str(CUT_SOLVER[0]),
+            "--solver-inner-steps", str(CUT_SOLVER[1])]
 SHARD_FAULTY_CFG = dict(scenario="faulty", mesh=2, fault_shard_p=0.7,
                         fault_crash_p=0.0,
-                        solver_max_outer=QUARTER_SOLVER[0],
-                        solver_inner_steps=QUARTER_SOLVER[1])
+                        solver_max_outer=CUT_SOLVER[0],
+                        solver_inner_steps=CUT_SOLVER[1])
 # the pool's phases at simulator scale (no bootstrap, no solve), as
 # benchmarks/sim_scale.py's dry rows take them: pool size, the emulated
 # mesh timed beside mesh 1, and the Algorithm-1 batch's pairs
-POOL_SCALE = (1024, 8, 64)
+POOL_SCALE = (512, 8, 64)
 # the packed solver against the structured one on the main path's
 # problem, capped: (max_outer, inner_steps)
-PACKED_SOLVE = (3, 300)
+PACKED_SOLVE = (2, 150)
 # the small runs held GPU against CPU: (scenario, engine, seed), each with
 # targets in some round under the port's seeds
 SMALL_SIM = [("channel-drift", "sync", 0), ("device-churn", "sync", 2),
@@ -716,8 +718,9 @@ def phase_kernels(ac, dg, report):
     # the main path's shape first, the simulator's scale, ragged P, an S
     # that is no multiple of 8, and T past one block's 256 targets
     # T past one block's 256 targets; then the sharded pool's slabs
-    # (S = N_pad, T = N_pad / k): N = 1024 over 8 shards, 256 over 8, 8
-    # over 4 (phase 4e's runs)
+    # (S = N_pad, T = N_pad / k): N = 1024 over 8 shards, held here on
+    # its own (phase 4e runs N = 512), then 256 over 8 and 8 over 4
+    # (phase 4e's runs)
     for s, t, p in [(10, 10, 48158), (256, 256, 48158), (7, 5, 1001),
                     (13, 9, 48158), (300, 300, 1001), (64, 300, 48158),
                     (1024, 128, 48158), (256, 32, 48158), (8, 2, 48158)]:
@@ -2607,6 +2610,11 @@ ACCT_TRAIN = (8, 512)
 # the dry run's architecture, at the 16x16 mesh and on one card, the
 # four input shapes
 ACCT_DRYRUN_ARCH = LM_ARCH
+# decode_32k on 16x16: rank 0's FLOPs x 256 over the one-card step's at
+# most this (each rank's own rows and query heads in its attention; the
+# k/v projection on every 'model' rank, as JAX's rule replicates the 8 kv
+# heads on a model axis of 16: ~1.15)
+ACCT_DRYRUN_DECODE_OVER_SHARE = 1.2
 DRYRUN_SCRIPT = """
 import sys
 from repro_torch.launch import dryrun
@@ -2954,7 +2962,10 @@ def phase_accounting(counted, report, smi, dryrun):
             ("no collective bytes", r["collective_bytes_per_device"] > 0),
             ("no collectives", bool(r["collectives"])),
             ("rank 0's FLOPs x 256 under one card's",
-             r["hlo_flops_per_device"] * r["chips"] >= whole)) if not ok]
+             r["hlo_flops_per_device"] * r["chips"] >= whole),
+            (f"decode over {ACCT_DRYRUN_DECODE_OVER_SHARE} of an even share",
+             shape != "decode_32k" or r["hlo_flops_per_device"] * r["chips"]
+             <= ACCT_DRYRUN_DECODE_OVER_SHARE * whole)) if not ok]
         if bad:
             raise AssertionError(f"[accounting] dry run {shape} on {mesh}: "
                                  f"{bad}: {r}")
@@ -3288,7 +3299,7 @@ def phase_sim(ac, counted, report, dev="cuda", runs=SIM_RUNS):
             "--scenario", scenario, "--devices", str(n), "--rounds",
             str(rounds), "--out", str(log_path), "--trace-out",
             str(trace_path), "--quiet", "--device", dev]
-            + (QUARTER_ARGS if cut else []))
+            + (CUT_ARGS if cut else []))
         wall = time.perf_counter() - t0
         launches = read_counts(counted)
         rows = read_jsonl(str(log_path))
@@ -3392,7 +3403,7 @@ def phase_sim_async(counted, report, dev="cuda", runs=SIM_ASYNC_RUNS):
         eng, _ = sim_run.simulate([
             "--scenario", scenario, "--engine", engine, "--devices", str(n),
             "--rounds", str(ticks), "--out", str(log_path), "--trace-out",
-            str(trace_path), "--quiet", "--device", dev, *QUARTER_ARGS])
+            str(trace_path), "--quiet", "--device", dev, *CUT_ARGS])
         wall = time.perf_counter() - t0
         launches = read_counts(counted)
         rows = read_jsonl(str(log_path))
@@ -3549,7 +3560,7 @@ def phase_sim_faulty(ac, counted, report, dev="cuda"):
     tag = f"faulty-n{n}-r{rounds}"
     base = ["--scenario", "faulty", "--devices", str(n), "--rounds",
             str(rounds), "--trace", "--quiet", "--device", dev,
-            *QUARTER_ARGS]
+            *CUT_ARGS]
     straight_log, log_path = out_dir / f"{tag}.jsonl", \
         out_dir / f"{tag}-resumed.jsonl"
     ckpt, again = Path(f"{log_path}.ckpt"), out_dir / f"{tag}.again"
@@ -3687,7 +3698,7 @@ def _sharded_launches(ac, pool_size, mesh):
 
 def phase_sim_shard(ac, counted, report, dev="cuda"):
     """The sharded device pool (``SimConfig.mesh``), counted.  (1) The
-    CLI's default run cut to 3 rounds through ``--mesh 1``, then the same
+    CLI's default run cut to 2 rounds through ``--mesh 1``, then the same
     config through the Python API at an emulated mesh of 4 (every shard
     on this card) and on the single-device pool: the decisions equal,
     ``alpha_combine`` launched one slab a shard a round (as
@@ -3713,7 +3724,7 @@ def phase_sim_shard(ac, counted, report, dev="cuda"):
         "--scenario", scenario, "--devices", str(n), "--rounds",
         str(rounds), "--mesh", "1", "--out",
         str(out_dir / f"{tag}-mesh1.jsonl"), "--trace", "--quiet",
-        *QUARTER_ARGS, "--device", dev])
+        *CUT_ARGS, "--device", dev])
     runs["mesh 1 (CLI)"] = (1, eng, rows, time.perf_counter() - t0,
                             read_counts(counted))
     for name, mesh in ((f"mesh {SHARD_MESH} (emulated)", SHARD_MESH),

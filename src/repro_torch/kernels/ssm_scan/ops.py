@@ -37,11 +37,13 @@ On a mesh the op takes DTensors through its DTensor sharding rule
 each rank runs the kernels (the plain version on the CPU) on its own
 rows and heads, which DTensor picks among the layouts the rule offers:
 all replicated, batch split, or heads split (q, k, v, log_w on dim 2,
-bonus on dim 0, the states on dim 1), the last offered where the heads
-divide the mesh's size.  The checks of a CUDA call (strides, staging,
-Dk, the chunk) apply to each rank's shards, the fake and the FLOP
-formula see the local shapes, and the launch counter counts each rank's
-own launches.  A CUDA DTensor call always launches the kernels.
+bonus on dim 0, the states on dim 1), the last offered where every set
+of the mesh's dims splits the heads evenly or not at all
+(``heads_split_even``: 32 heads split on the 'model' axis of a 16x16
+mesh, not over all 256 ranks).  The checks of a CUDA call (strides,
+staging, Dk, the chunk) apply to each rank's shards, the fake and the
+FLOP formula see the local shapes, and the launch counter counts each
+rank's own launches.  A CUDA DTensor call always launches the kernels.
 
 ``gla_chunked_float64_sums`` names the plain version where a check
 holds the kernels to float64 sums: the plain version sums its products
@@ -51,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 from typing import Optional, Tuple
 
@@ -228,14 +231,25 @@ def gla_flops(b: int, l: int, h: int, dk: int, dv: int, chunk: int,
     return b * h * n * per
 
 
+def heads_split_even(heads: int, sizes) -> bool:
+    """Whether every set of mesh dims (of ``sizes``) that could split
+    ``heads`` splits them evenly: the set's size divides them, or
+    exceeds them (DTensor refuses a split into more shards than the dim
+    holds)."""
+    return all(heads % p == 0 or p > heads
+               for r in range(1, len(sizes) + 1)
+               for p in map(math.prod, itertools.combinations(sizes, r)))
+
+
 @register_sharding(torch.ops.repro_torch.gla_chunked.default)
 def _gla_sharding(q, k, v, log_w, chunk, variant, bonus, initial_state):
     """The layouts, one mesh dim at a time, in which each rank's call on
     its shards computes its shard of (y, final state): all replicated;
     batch split (dim 0 of q, k, v, log_w, y and both states; bonus
     replicated); heads split (dim 2 of q, k, v, log_w and y, dim 0 of
-    bonus, dim 1 of both states), offered where the heads divide the
-    whole mesh's size.  An input that is None has no placement."""
+    bonus, dim 1 of both states), offered where the mesh's dims split
+    the heads evenly, in any combination (``heads_split_even``).  An
+    input that is None has no placement."""
     def row(seq, bon, st):
         return [seq, st, seq, seq, seq, seq, None, None,
                 None if bonus is None else bon,
@@ -245,7 +259,7 @@ def _gla_sharding(q, k, v, log_w, chunk, variant, bonus, initial_state):
                    row(Replicate(), Replicate(), Replicate())[2:]),
                   (row(Shard(0), Replicate(), Shard(0))[:2],
                    row(Shard(0), Replicate(), Shard(0))[2:])]
-    if q.shape[2] % math.prod(q.mesh.shape) == 0:
+    if heads_split_even(q.shape[2], q.mesh.shape):
         split = row(Shard(2), Shard(0), Shard(1))
         strategies.append((split[:2], split[2:]))
     return strategies

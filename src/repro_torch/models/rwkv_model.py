@@ -141,7 +141,7 @@ class RWKVModel(LMBase):
             lp = take_layer(params["layers"], i)
             a, (na, nw) = rwkv.time_mix_decode(
                 lp["att"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
-                prev_x=prev_att[i], state=wkv[i])
+                prev_x=prev_att[i], state=wkv[i], ctx=ctx)
             x = x + a
             f, nf = rwkv.channel_mix(
                 lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps),

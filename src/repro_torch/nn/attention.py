@@ -15,10 +15,13 @@ constrained at JAX's points (``src/repro/nn/attention.py:131-132, 151,
 DTensors on the activations' mesh, the flash kernel runs on each rank's
 shard through its sharding rule (``kernels/flash_attention/ops.py``),
 and decode writes each rank's own rows of a cache sharded on batch and
-kv heads.  Attention is independent per (batch, head), so what DTensor
-cannot run as it stands (the dot and chunked routes, ``_repeat_kv``,
-the flash kernel's plain version that CPU training on a mesh takes)
-runs on each rank's rows and heads (``nn.layers.per_rank``).
+kv heads, then attends on each rank's rows and query heads only (its
+input whole on its rows, q laid out on its rows and heads, and from the
+cache the kv heads those query heads read: ``_repeat_kv``), as JAX's
+partitioner splits it.  Attention is independent per (batch, head),
+so what DTensor cannot run as it stands (the dot and chunked routes,
+``_repeat_kv``, the flash kernel's plain version that CPU training on a
+mesh takes) runs on each rank's rows and heads (``nn.layers.per_rank``).
 """
 from __future__ import annotations
 
@@ -45,19 +48,49 @@ def attention_specs(d_model: int, num_heads: int, num_kv_heads: int,
     }
 
 
-def _repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+def _local_range(n: int, mesh, placements, dim: int):
+    """(first global index, count) of this rank's entries of a dim ``dim``
+    of size ``n`` under ``placements`` (split evenly, the outer mesh dim
+    first, as DTensor splits it)."""
+    coord, off = mesh.get_coordinate(), 0
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n //= mesh.size(i)
+            off += coord[i] * n
+    return off, n
+
+
+def _repeat_kv(k: torch.Tensor, num_heads: int,
+               q: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, S, KV, hd) -> (B, S, H, hd) by group broadcast.  A DTensor is
-    repeated on each rank's shard, keeping its layout: a rank holding KV
-    heads [a, b) holds query heads [a, b) * H/KV of the result."""
+    repeated on each rank's shard.  With ``q`` (decode) the result is
+    laid out as q splits its batch and heads: each rank reads only the kv
+    heads its own query heads use, so a cache whose kv heads are
+    replicated (JAX's divisibility fallback) is indexed locally, not
+    gathered.  Without it the result keeps the shard's layout: a rank
+    holding KV heads [a, b) holds query heads [a, b) * H/KV."""
     rep = num_heads // k.shape[2]
     if rep == 1:
         return k
     if not isinstance(k, DTensor):
         return k.repeat_interleave(rep, dim=2)
-    return per_rank(lambda t: t.repeat_interleave(rep, dim=2),
-                    k.device_mesh, [(k, k.placements)],
-                    [(k.placements, k.shape[:2] + (num_heads,)
-                      + k.shape[3:])])
+    mesh, shape = k.device_mesh, k.shape[:2] + (num_heads,) + k.shape[3:]
+    if q is None:
+        return per_rank(lambda t: t.repeat_interleave(rep, dim=2), mesh,
+                        [(k, k.placements)], [(k.placements, shape)])
+    out = kept(q, 0, 2)
+    split = [p == Shard(2) for p in out]
+    # k keeps its kv-heads split where q's heads split alike
+    lk = [p if not s else kp if kp == Shard(2) else Replicate()
+          for p, s, kp in zip(kept(q, 0), split, k.placements)]
+    # a replicated cache's gradient: a partial sum over the heads' ranks
+    grads = [Partial() if s and p == Replicate() else p
+             for p, s in zip(lk, split)]
+    h0, n = _local_range(num_heads, mesh, out, 2)
+    k0, _ = _local_range(k.shape[2], mesh, lk, 2)
+    return per_rank(lambda t: t.index_select(2, torch.arange(
+        h0, h0 + n, device=t.device) // rep - k0), mesh,
+                    [(k, lk, grads)], [(out, shape)])
 
 
 # fp32 score elements ``dot_attention`` holds at once (4 GiB): past
@@ -288,17 +321,21 @@ def decode_attend(params, x, cache, pos, *, num_heads, num_kv_heads,
     donated buffers do), on a mesh each rank its own rows
     (``_write_rows``).  Returns (out (B,1,D), cache).
     """
-    b = x.shape[0]
+    # on a mesh: x whole on each rank's rows (no partial sums, so no
+    # projection runs on every head), q on its rows and heads
+    x = ctx.constrain(x, "batch", None, None)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
     if cross_kv is None:
         q = apply_rope(q, pos[:, None], rope_theta)
+    q = ctx.constrain(q, "batch", None, "heads", None)
 
     if cross_kv is not None:
         k, v = cross_kv
-        mask = torch.ones((b, 1, 1, k.shape[1]), dtype=torch.bool,
+        mask = torch.ones((1, 1, 1, k.shape[1]), dtype=torch.bool,
                           device=x.device)
-        out = dot_attention(q, _repeat_kv(k, num_heads),
-                            _repeat_kv(v, num_heads), mask, dtype=dtype)
+        out = dot_attention(q, _repeat_kv(k, num_heads, q),
+                            _repeat_kv(v, num_heads, q), mask, dtype=dtype)
+        out = ctx.constrain(out, "batch", None, "heads", None)
         return torch.einsum("bshk,hkd->bsd", out,
                             params["wo"].to(dtype)), cache
 
@@ -325,7 +362,8 @@ def decode_attend(params, x, cache, pos, *, num_heads, num_kv_heads,
         valid = kpos <= p
     mask = valid[:, None, None, :]                             # (B,1,1,S)
 
-    out = dot_attention(q, _repeat_kv(cache["k"], num_heads),
-                        _repeat_kv(cache["v"], num_heads), mask, dtype=dtype)
+    out = dot_attention(q, _repeat_kv(cache["k"], num_heads, q),
+                        _repeat_kv(cache["v"], num_heads, q), mask,
+                        dtype=dtype)
     out = ctx.constrain(out, "batch", None, "heads", None)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype)), cache

@@ -104,6 +104,14 @@ def _out(p, y, g, dtype):
     return mm(y, p["wo"], dtype)
 
 
+def _heads_split(rkvgw, ctx: ShardCtx):
+    """r, k, v and log_w (B, S, H, hd) laid out ("batch", None, "heads",
+    None), the layout the ("embed", "heads") projections give them on
+    'model'; g (B, S, D) as it is."""
+    return tuple(ctx.constrain(t, "batch", None, "heads", None)
+                 if t.dim() == 4 else t for t in rkvgw)
+
+
 def time_mix(p, x, cfg: ModelConfig, *, prev_x, state,
              ctx: ShardCtx = NO_SHARD, dtype=torch.bfloat16, impl="kernel"):
     """Full-sequence WKV.  prev_x: (B,D); state: (B,H,hd,hd) fp32 or
@@ -119,10 +127,9 @@ def time_mix(p, x, cfg: ModelConfig, *, prev_x, state,
     if impl not in ("kernel", "plain"):
         raise ValueError(f"time_mix: impl {impl!r} is not 'kernel' or "
                          f"'plain'")
-    h, hd = cfg.num_heads, cfg.resolved_head_dim()
-    r, k, v, g, log_w = (
-        ctx.constrain(t, "batch", None, "heads", None) if t.dim() == 4
-        else t for t in _rkvgw(p, x, _shift(x, prev_x), h, hd, dtype))
+    r, k, v, g, log_w = _heads_split(
+        _rkvgw(p, x, _shift(x, prev_x), cfg.num_heads,
+               cfg.resolved_head_dim(), dtype), ctx)
     scan = ssm_ops.gla_chunked if impl == "kernel" else gla_chunked
     y, s_final = scan(r, k, v, log_w, chunk=cfg.ssm.chunk, variant="rwkv",
                       bonus=p["bonus"], initial_state=state)
@@ -130,10 +137,13 @@ def time_mix(p, x, cfg: ModelConfig, *, prev_x, state,
 
 
 def time_mix_decode(p, x, cfg: ModelConfig, *, prev_x, state,
-                    dtype=torch.bfloat16):
-    """x: (B,1,D), one step through ``gla_decode``."""
-    h, hd = cfg.num_heads, cfg.resolved_head_dim()
-    r, k, v, g, log_w = _rkvgw(p, x, prev_x[:, None], h, hd, dtype)
+                    ctx: ShardCtx = NO_SHARD, dtype=torch.bfloat16):
+    """x: (B,1,D), one step through ``gla_decode``; on a mesh its inputs
+    laid out as ``time_mix`` lays out the scan's, so the readout runs on
+    each rank's rows and heads."""
+    r, k, v, g, log_w = _heads_split(
+        _rkvgw(p, x, prev_x[:, None], cfg.num_heads,
+               cfg.resolved_head_dim(), dtype), ctx)
     y, s_new = gla_decode(r[:, 0], k[:, 0], v[:, 0], log_w[:, 0], state,
                           variant="rwkv", bonus=p["bonus"])
     return _out(p, y[:, None], g, dtype), (x[:, -1], s_new)

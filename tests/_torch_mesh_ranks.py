@@ -122,6 +122,58 @@ def _flash_layouts(dm, seed=0):
     return out
 
 
+def _decode_gqa_layouts(dm, seed=0):
+    """A decode attention's query (4, 1, 8, 16) laid out as the models lay
+    it out (batch on 'data', heads on 'model'), against K/V caches (4, 12,
+    kv, 16) laid out as the rules lay them out (kv heads on 'model' where
+    they divide it, else replicated) for GQA 8/2, MQA 8/1 and GQA 8/4:
+    ``_repeat_kv`` against the plain repeat, each rank's repeated K shape,
+    ``dot_attention``'s output and the cache's gradient through it
+    against the plain tensors'."""
+    from repro_torch.nn import attention
+    rng = np.random.default_rng(seed)
+    names = dm.mesh_dim_names
+    out = {}
+
+    def place(t, heads):
+        pl = [Shard(0) if name == "data" else
+              Shard(2) if heads and t.shape[2] % dm.shape[i] == 0
+              and t.shape[2] > 1 else Replicate()
+              for i, name in enumerate(names)]
+        return distribute_tensor(t, dm, pl, src_data_rank=None)
+
+    mask = torch.ones((1, 1, 1, 12), dtype=torch.bool)
+    w = torch.as_tensor(rng.normal(size=(4, 1, 8, 16)), dtype=torch.float32)
+    for h, kv in ((8, 2), (8, 1), (8, 4)):
+        q, k, v = (torch.as_tensor(rng.normal(size=shape),
+                                   dtype=torch.float32)
+                   for shape in ((4, 1, h, 16), (4, 12, kv, 16),
+                                 (4, 12, kv, 16)))
+        ref_k = k.repeat_interleave(h // kv, dim=2)
+        k_ref = k.clone().requires_grad_(True)
+        ref = attention.dot_attention(
+            q, k_ref.repeat_interleave(h // kv, dim=2),
+            v.repeat_interleave(h // kv, dim=2), mask, dtype=torch.float32)
+        (ref * w).sum().backward()
+        dq = place(q, True)
+        dk = place(k, True).detach().requires_grad_(True)
+        big_k = attention._repeat_kv(dk, h, dq)
+        got = attention.dot_attention(
+            dq, big_k, attention._repeat_kv(place(v, True), h, dq),
+            attention.on_mesh_of(mask, dq), dtype=torch.float32)
+        (got * place(w, True)).sum().backward()
+        out[(h, kv)] = dict(
+            repeat_err=float((big_k.detach().full_tensor()
+                              - ref_k).abs().max()),
+            local_k=tuple(big_k.to_local().shape),
+            cache=[repr(p) for p in dk.placements],
+            err=float((got.detach().full_tensor()
+                       - ref.detach()).abs().max()),
+            grad_err=float((dk.grad.full_tensor()
+                            - k_ref.grad).abs().max()))
+    return out
+
+
 def lm_steps_on_meshes(meshes, *args):
     """``lm_steps`` on each (data, model) shape of ``meshes``, every one a
     ``DeviceMesh`` over the same ranks: {shape: results} on rank 0."""
@@ -202,6 +254,7 @@ def lm_steps(dm, llama_np, repro_np, prompt, decode_steps, train_batches,
     out["train_step"] = int(shd.full(st["step"]))
     out["shard_shapes_ok"] = shape_ok
     out["flash"] = _flash_layouts(dm)
+    out["decode_gqa"] = _decode_gqa_layouts(dm)
     return out
 
 

@@ -339,6 +339,24 @@ def test_flash_rule_keeps_each_query_head_on_its_kv_head(runs, mesh):
         assert got[(8, 2)]["inputs"][1] == ["Shard(dim=0)", "Replicate()"]
 
 
+@pytest.mark.parametrize("mesh", MESHES)
+def test_decode_attention_reads_each_rank_s_kv_heads(runs, mesh):
+    """A decode query laid out on its rows and heads reads from a cache
+    whose kv heads are split (GQA 8/2 and 8/4 where they divide 'model')
+    or replicated (MQA 8/1; 8/2 on a 'model' axis of 4) only the kv heads
+    its own query heads use: the repeated K on each rank holds its rows
+    and H/m heads, equal to the plain repeat; the attention and the
+    cache's gradient (a partial sum over the ranks that split the heads,
+    where the cache is replicated) equal the plain tensors'."""
+    got = runs[0][mesh]["decode_gqa"]
+    for (h, kv), r in got.items():
+        assert r["repeat_err"] == 0.0, (h, kv, r)
+        assert r["local_k"] == (4 // mesh[0], 12, h // mesh[1], 16), r
+        assert r["err"] <= 1e-5 and r["grad_err"] <= 1e-5, (h, kv, r)
+    if mesh[1] > 1:     # the slice of a replicated cache is exercised
+        assert got[(8, 1)]["cache"][1] == "Replicate()"
+
+
 @pytest.mark.parametrize("h,kv,split,ok", [
     (32, 8, 2, True), (32, 8, 4, True), (48, 1, 4, True), (8, 2, 4, False),
     (6, 3, 2, False), (6, 2, 4, False), (4, 4, 4, True)])

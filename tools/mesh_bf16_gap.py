@@ -9,9 +9,10 @@ prefill in one process (max |dlogit|, the share of rows whose argmax
 agrees), twice: as the port runs it, and with every bf16 product, on
 the mesh and in the one process alike, taken in fp32 and rounded to
 bf16 once, a DTensor's partial sums reduced in fp32 before that
-rounding (``Fp32Products``).  If the second gap closes, the first is
-the rounding of each rank's partial bf16 sums, not a fault of the mesh
-code.  The floor of that second gap: one process with its products
+rounding (``Fp32Products``), and then with that done on the mesh
+alone, against one process as it runs.  If the second and third gaps
+close, the first is the rounding of each rank's partial bf16 sums, not
+a fault of the mesh code.  The floor of that second gap: one process with its products
 in fp64 against the same in fp32 (``Fp64Products``), which moves
 nothing but fp32's rounding of the sums.
 
@@ -189,6 +190,12 @@ def main(argv=None):
                     print(f"[gap] {where}, {how}: max |dlogit| from one "
                           f"process {gap:.4g}, argmax equal in "
                           f"{share:.4f} of the rows")
+                    if mode is not None:
+                        gap, share = _apart(logits, refs[None])
+                        print(f"[gap] {where}, every bf16 product in fp32 "
+                              f"on the mesh alone: max |dlogit| from one "
+                              f"process as it runs {gap:.4g}, argmax "
+                              f"equal in {share:.4f} of the rows")
                     continue
                 total = {}
                 for (name, shape, dtype), (n, nbytes) in sorted(
