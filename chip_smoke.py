@@ -421,7 +421,10 @@ MESH_GRAD_TOL_SHARDED = 5e-3
 # the sums split over the ranks round elsewhere in every block, and
 # zamba2-7b's 95 blocks put its prefill 2.5e-5 apart on (1, 4), past
 # MESH_F32_TOL_SHARDED, which llama3.2-1b's 16 layers just meet
-# (1.01e-5); tests/test_torch_lm.py's bar against JAX
+# (1.01e-5); tests/test_torch_lm.py's bar against JAX.  One process's
+# own floor, its fp32 prefill at MESH_FAMILY_F32 with the products in
+# fp64 against as it runs (tools/mesh_bf16_gap.py floor, one H100):
+# zamba2-7b 2.551e-5, rwkv6 1.073e-6
 MESH_F32_TOL_FAMILIES = dict(atol=1e-4, rtol=1e-4)
 # their bf16 calls on a sharded mesh against the one-rank mesh are held
 # at LM_TOL with equal argmax, but zamba2-7b's: each rank rounds its
@@ -431,9 +434,13 @@ MESH_F32_TOL_FAMILIES = dict(atol=1e-4, rtol=1e-4)
 # partial sums reduced before the one rounding, the gap falls to the
 # floor of fp32's reordering (tools/mesh_bf16_gap.py at reduced() on
 # the CPU: (1, 4) 0.0169 -> 0.0052, floor 0.0048; rwkv6 0.0072 -> 0),
-# so it is rounding, not the mesh code.  Held at twice the reading,
-# with the argmax equal in MESH_BF16_ARGMAX_DEEP of the rows (a
-# prefill's 8,192; a decode's 16, of which one flipped)
+# so it is rounding, not the mesh code; at full depth any reordering
+# moves zamba2-7b's bf16 prefill that far (one process, its products in
+# fp64 against as it runs: 0.1959 at (4, 2048), tools/mesh_bf16_gap.py
+# floor), and fp32 partial sums on four H100s read 0.2029 with a
+# prefill row flipped.  Held at twice the reading, with the argmax
+# equal in MESH_BF16_ARGMAX_DEEP of the rows (a prefill's 4; a decode's
+# 16, of which one flipped)
 MESH_BF16_TOL_DEEP = {"zamba2-7b": dict(atol=0.6, rtol=0.05)}
 MESH_BF16_ARGMAX_DEEP = {"prefill": 0.99, "decode": 0.75}
 # 9c: grok-1 at full width on 6 of 64 layers (three times phase 5's

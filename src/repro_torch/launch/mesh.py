@@ -221,15 +221,18 @@ def launch(fn: Callable[..., Any], world: int, *, device_type: str = "cuda",
                 bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
                 if bad:
                     # the first rank that failed, not a rank that then
-                    # lost its peer: give the others a moment to exit
+                    # lost its peer: give the others a moment to exit.  A
+                    # rank that has written its traceback has failed, even
+                    # while it still tears its group down
                     time.sleep(0.5)
+                    errs = {r: Path(tmp, f"error{r}.txt")
+                            for r in range(world)}
                     bad = [r for r, p in enumerate(procs)
-                           if p.exitcode not in (None, 0)]
-                    errs = {r: Path(tmp, f"error{r}.txt") for r in bad}
+                           if p.exitcode not in (None, 0) or errs[r].exists()]
                     first = min(bad, key=lambda r: errs[r].stat().st_mtime
                                 if errs[r].exists() else float("inf"))
-                    failed = (f"rank {first} of {world} exited with "
-                              f"{procs[first].exitcode}:\n"
+                    failed = (f"rank {first} of {world} failed (exit code "
+                              f"{procs[first].exitcode}):\n"
                               + (errs[first].read_text()
                                  if errs[first].exists() else ""))
                     break

@@ -137,16 +137,21 @@ def _gated_norm(y, z, scale, eps=1e-5):
     return (f32 * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
 
 
+def in_proj(p, x, dtype, ctx: ShardCtx = NO_SHARD):
+    """z | x | B | C | dt (B, S, proj_out) of x (B, S, D).  On a mesh the
+    projection's output dim is gathered (in ``dtype``) before the
+    product, so that the five parts come out whole on every rank and
+    ``_split_proj`` cuts no split dim (the layouts ROADMAP item j weighs
+    against this one are counted by ``tools/mesh_bf16_gap.py layer``)."""
+    w = ctx.constrain(p["in_proj"].to(dtype), "embed", None)
+    return mm(x, w, dtype)
+
+
 def _conv_ssd(p, x, cfg, conv_state, dtype, ctx: ShardCtx = NO_SHARD):
     """in_proj, the causal conv and the SSD inputs shared by the block
     and the decode step: (z, q, k, v, log_w, xh, new conv state)."""
     d_inner = dims(cfg)[0]
-    # on a mesh the projection's output dim is gathered (in ``dtype``)
-    # before the product, so that z | x | B | C | dt come out whole on
-    # every rank and ``_split_proj`` cuts no split dim
-    w = ctx.constrain(p["in_proj"].to(dtype), "embed", None)
-    zxbcdt = mm(x, w, dtype)
-    z, xin, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
+    z, xin, bmat, cmat, dt = _split_proj(cfg, in_proj(p, x, dtype, ctx))
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
     conv_out, conv_state = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
                                         conv_state)
